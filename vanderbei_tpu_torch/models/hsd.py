@@ -1,0 +1,417 @@
+"""Homogeneous self-dual interior-point method on torch tensors, the port
+of vanderbei_tpu/models/hsd.py.
+
+"hsd" is the reference ipo's default method (src/ipo/hsd.c:27-311) with a
+Mehrotra predictor-corrector by default or the reference's alternating
+delta=0/1 scheme; "hsdls" is the long-step variant (src/ipo/hsdls.c) with
+its beta-neighbourhood quadratic linesearch.  Each iteration does one KKT
+factorization and solves the f- and g-systems through it, combined by the
+dphi formula (hsd.c:230-238).
+
+The loop runs on the host: each iteration reads the loop condition and the
+decided-status flag back from the device (the JAX package's while_loop and
+lax.cond), and the KKT layer reads its own retry and refinement flags.
+Everything else, including the stall detector, the quality gate and the
+finite-iterate guard, stays on the device as tensor arithmetic.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..core.status import Status
+from ..ops.kkt import kkt_factor, kkt_solve, UbTail, tail_matvec, tail_rmatvec
+
+DEFAULT_MAX_ITER = 200      # hsd.c:25
+DEFAULT_MAX_ITER_LS = 600   # hsdls.c:25
+STALL_LIMIT = 15            # consecutive non-improving iterations -> stop
+
+_RUNNING = int(Status.RUNNING)
+_OPTIMAL = int(Status.OPTIMAL)
+_SUBOPTIMAL = int(Status.SUBOPTIMAL)
+
+HSD_BANNER = (
+    "--------------------------------------------------------------------------\n"
+    "         |           Primal          |            Dual           |       |\n"
+    "  Iter   |  Obj Value       Infeas   |  Obj Value       Infeas   |  mu   |\n"
+    "- - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - - ")
+
+
+def _trace_row(it, pobj, normr, dobj, norms, mu):
+    """Host-side printer for one iteration row (hsd.c:206-208 format)."""
+    print(f"{int(it):8d}   {float(pobj):14.7e}  {float(normr):8.1e}    "
+          f"{float(dobj):14.7e}  {float(norms):8.1e}  {float(mu):8.1e}",
+          flush=True)
+
+
+class HsdState(NamedTuple):
+    """Solver state; field names match vanderbei_tpu.models.hsd.HsdState
+    (and so the npz checkpoints).  iter, status and stall are 0-d int64."""
+    x: torch.Tensor
+    z: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor
+    phi: torch.Tensor
+    psi: torch.Tensor
+    iter: torch.Tensor
+    status: torch.Tensor
+    reg: torch.Tensor       # sticky Tikhonov level of the KKT factor
+    mu_best: torch.Tensor   # stall detector: best mu seen ...
+    stall: torch.Tensor     # ... and consecutive non-improving iterations
+
+
+def _hsd_linesearch(v, dv, s, ds, beta, delta, mu):
+    """Largest theta keeping (v+t*dv)(s+t*ds) inside the beta-neighbourhood:
+    the quadratic-root case analysis of hsdls.c:296-336, elementwise; +inf
+    where any step is admissible."""
+    a = dv * ds
+    b = s * dv + v * ds + (1.0 - beta) * (1.0 - delta) * mu
+    c = v * s - (1.0 - beta) * mu
+    d = b * b - 4.0 * a * c
+    sqrt_d = torch.sqrt(torch.clamp_min(d, 0.0))
+    inf = float("inf")
+
+    lin = -c / b                                    # a == 0
+    stable = 2.0 * c / (-b + sqrt_d)                # root avoiding cancellation
+    classic = (-b - sqrt_d) / (2.0 * a)
+
+    pos_a = torch.where(b < 0.0, torch.where(d >= 0.0, stable, inf), inf)
+    neg_a = torch.where(b < 0.0, stable, classic)
+    return torch.where(a == 0.0, lin, torch.where(a > 0.0, pos_a, neg_a))
+
+
+def _int(v: int, device) -> torch.Tensor:
+    return torch.full((), v, dtype=torch.int64, device=device)
+
+
+def init_state(A, extra_rows: int = 0) -> HsdState:
+    """All-ones homogeneous start (hsd.c:98-109); extra_rows counts the
+    implicit ub-tail rows (y/w span the full canonical row space)."""
+    m, n = A.shape
+    m = m + extra_rows
+    kw = dict(dtype=A.dtype, device=A.device)
+    return HsdState(torch.ones(n, **kw), torch.ones(n, **kw),
+                    torch.ones(m, **kw), torch.ones(m, **kw),
+                    torch.ones((), **kw), torch.ones((), **kw),
+                    _int(0, A.device), _int(_RUNNING, A.device),
+                    torch.zeros((), **kw),
+                    torch.full((), float("inf"), **kw), _int(0, A.device))
+
+
+def cast_state(state: HsdState, dtype) -> HsdState:
+    """Move a paused state between precision stages.  The sticky factor
+    regularization resets (it is calibrated to the old precision's
+    roundoff) and so does the stall counter."""
+    return HsdState(
+        *(leaf.to(dtype) for leaf in state[:6]),
+        state.iter, state.status, torch.zeros((), dtype=dtype,
+                                              device=state.x.device),
+        state.mu_best.to(dtype), torch.zeros_like(state.stall))
+
+
+def _max(*ts):
+    out = ts[0]
+    for t in ts[1:]:
+        out = torch.maximum(out, t)
+    return out
+
+
+def make_step(A, b, c, *,
+              eps=1.0e-12,
+              step_factor=0.95,
+              beta=0.80,
+              epsdiag=1.0e-14,
+              refine_tol=1.0e-10,
+              gap_tol=1.0e-6,
+              feas_tol=1.0e-6,
+              long_step: bool = False,
+              max_refine: int = 8,
+              trace: bool = False,
+              f=0.0,
+              factor_dtype=None,
+              corrector: str = "mehrotra",
+              ub: UbTail | None = None):
+    """Build the single-iteration step function state -> state (one KKT
+    factorization, the f/g solves, the ratio test or linesearch, the
+    update), as vanderbei_tpu.models.hsd.make_step."""
+    m, n = A.shape
+    if ub is not None:
+        m = m + ub.idx2.shape[0]     # y/w span the implicit tail rows too
+    dtype = A.dtype
+    dev = A.device
+    knob = lambda v: torch.full((), v, dtype=dtype, device=dev)
+    eps, step_factor, beta = knob(eps), knob(step_factor), knob(beta)
+    gap_tol, feas_tol, f = knob(gap_tol), knob(feas_tol), knob(f)
+    one = knob(1.0)
+    if ub is not None:
+        mv = lambda M, v: tail_matvec(M, ub, v)
+        mvT = lambda M, v: tail_rmatvec(M, ub, v)
+    else:
+        mv = lambda M, v: M @ v
+        mvT = lambda M, v: M.mT @ v
+
+    def body(s: HsdState) -> HsdState:
+        x, z, y, w, phi, psi = s.x, s.z, s.y, s.w, s.phi, s.psi
+
+        mu = (z @ x + w @ y + phi * psi) / (n + m + 1)
+        if long_step:
+            delta = 2.0 * (1.0 - beta)                       # hsdls.c:113
+        else:
+            delta = torch.where(s.iter % 2 == 0, 0.0, one)   # hsd.c:138-142
+
+        primal_obj = c @ x
+        dual_obj = b @ y
+
+        # infeasibilities (hsd.c:182-198), before the stop test
+        rho = mv(A, x) - b * phi + w        # (m,) incl. implicit tail rows
+        sigma = -mvT(A, y) + c * phi + z
+
+        # stopping rule (hsd.c:155-176 / hsdls.c:134-154) plus the quality
+        # gate on the de-homogenized point (see vanderbei_tpu's make_step)
+        converged = mu < eps
+        opt_test = phi > eps if long_step else phi > psi
+        scale = 1.0 + torch.abs(primal_obj) / phi
+        gap_rel = (dual_obj - primal_obj) / phi / scale
+        comp_rel = (z @ x + w @ y) / (phi * phi) / scale
+        pinf_rel = torch.sqrt(rho @ rho) / phi / (1.0 + torch.sqrt(b @ b))
+        dinf_rel = torch.sqrt(sigma @ sigma) / phi / (1.0 + torch.sqrt(c @ c))
+        perr = torch.abs(y @ rho) / (phi * phi) / scale
+        derr = torch.abs(x @ sigma) / (phi * phi) / scale
+        good = ((gap_rel <= gap_tol) & (comp_rel <= gap_tol)
+                & (pinf_rel <= feas_tol) & (dinf_rel <= feas_tol)
+                & (perr <= 10.0 * gap_tol) & (derr <= 10.0 * gap_tol))
+        fallback = _SUBOPTIMAL if long_step else int(Status.DUAL_INFEASIBLE)
+        final = torch.where(
+            opt_test,
+            torch.where(good, _OPTIMAL, _SUBOPTIMAL),
+            torch.where(dual_obj < 0.0, int(Status.PRIMAL_INFEASIBLE),
+                        torch.where(primal_obj > 0.0,
+                                    int(Status.DUAL_INFEASIBLE), fallback)))
+        # stall detector: STALL_LIMIT iterations without a 10% mu gain stop
+        # the solve; near the stop tolerance the quality-gated verdict holds
+        improved = mu < 0.9 * s.mu_best
+        stall2 = torch.where(improved, 0, s.stall + 1)
+        mu_best2 = torch.minimum(s.mu_best, mu)
+        stalled = stall2 >= STALL_LIMIT
+        mu_small = mu < torch.maximum(eps * 1.0e3, knob(1.0e-9))
+        new_status = torch.where(
+            converged | (stalled & mu_small), final,
+            torch.where(stalled, _SUBOPTIMAL, _RUNNING))
+
+        if trace:
+            _trace_row(s.iter, primal_obj / phi + f,
+                       torch.sqrt(rho @ rho) / phi, dual_obj / phi + f,
+                       torch.sqrt(sigma @ sigma) / phi, mu)
+
+        def step():
+            D = z / x
+            E = w / y
+            fac = kkt_factor(A, E, D, epsdiag, factor_dtype=factor_dtype,
+                             ub=ub, reg0=s.reg)
+            solve = lambda ry, rx: kkt_solve(
+                A, E, D, fac, ry, rx, epsdiag=epsdiag, refine_tol=refine_tol,
+                max_refine=max_refine, ub=ub)
+
+            def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
+                """Fold a (delta, second-order) Newton system through the
+                shared f/g combination (hsd.c:230-238)."""
+                dphi = ((c @ fx - b @ fy
+                         + (-(1.0 - dlt) * (dual_obj - primal_obj + psi)
+                            + psi - dlt * mu / phi + so_phi / phi))
+                        / (c @ gx - b @ gy - psi / phi))
+                dx = fx - gx * dphi
+                dy = fy - gy * dphi
+                dz = dlt * mu / x - z - D * dx - so_x / x
+                dw = dlt * mu / y - w - E * dy - so_y / y
+                dpsi = dlt * mu / phi - psi - (psi / phi) * dphi - so_phi / phi
+                return dx, dy, dz, dw, dphi, dpsi
+
+            def f_rhs(dlt, so_x, so_y):
+                rho_rhs = -(1.0 - dlt) * rho + w - dlt * mu / y + so_y / y
+                sigma_rhs = -(1.0 - dlt) * sigma + z - dlt * mu / x + so_x / x
+                return rho_rhs, sigma_rhs
+
+            zero_x = torch.zeros_like(x)
+            zero_y = torch.zeros_like(y)
+            zero_s = torch.zeros_like(phi)
+
+            if corrector == "mehrotra" and not long_step:
+                # predictor: affine f-system and the g-system in one
+                # 2-column solve through the factor
+                r_aff, s_aff = f_rhs(0.0, zero_x, zero_y)
+                sy, sx = solve(torch.stack([r_aff, -b], dim=1),
+                               torch.stack([-s_aff, -c], dim=1))
+                fy, gy = sy[:, 0], sy[:, 1]
+                fx, gx = sx[:, 0], sx[:, 1]
+                dx_a, dy_a, dz_a, dw_a, dphi_a, dpsi_a = directions(
+                    0.0, zero_x, zero_y, zero_s, gy, gx, fy, fx)
+
+                # full affine step to the boundary -> adaptive centering
+                t_a = _max(torch.max(-dx_a / x), torch.max(-dz_a / z),
+                           torch.max(-dy_a / y), torch.max(-dw_a / w),
+                           -dphi_a / phi, -dpsi_a / psi)
+                th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
+                                   one)
+                mu_aff = ((z + th_a * dz_a) @ (x + th_a * dx_a)
+                          + (w + th_a * dw_a) @ (y + th_a * dy_a)
+                          + (phi + th_a * dphi_a) * (psi + th_a * dpsi_a)
+                          ) / (n + m + 1)
+                sig = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
+
+                # corrector: second-order products (Mehrotra's
+                # sigma*mu - dX_a dZ_a right-hand side)
+                so_x, so_y = dx_a * dz_a, dy_a * dw_a
+                so_phi = dphi_a * dpsi_a
+                r_c, s_c = f_rhs(sig, so_x, so_y)
+                cy, cx = solve(r_c[:, None], -s_c[:, None])
+                dx, dy, dz, dw, dphi, dpsi = directions(
+                    sig, so_x, so_y, so_phi, gy, gx, cy[:, 0], cx[:, 0])
+            else:
+                rho_rhs, sigma_rhs = f_rhs(delta, zero_x, zero_y)
+                sy, sx = solve(torch.stack([rho_rhs, -b], dim=1),
+                               torch.stack([-sigma_rhs, -c], dim=1))
+                fy, gy = sy[:, 0], sy[:, 1]
+                fx, gx = sx[:, 0], sx[:, 1]
+                dx, dy, dz, dw, dphi, dpsi = directions(
+                    delta, zero_x, zero_y, zero_s, gy, gx, fy, fx)
+
+            if long_step:
+                theta = torch.minimum(
+                    torch.min(_hsd_linesearch(x, dx, z, dz, beta, delta, mu)),
+                    torch.min(_hsd_linesearch(y, dy, w, dw, beta, delta, mu)))
+                theta = torch.minimum(theta, _hsd_linesearch(
+                    phi, dphi, psi, dpsi, beta, delta, mu))
+                theta = torch.minimum(theta, one)
+                theta = torch.where(theta < 1.0, theta * 0.9999, theta)
+            else:
+                t = _max(torch.max(-dx / x), torch.max(-dz / z),
+                         torch.max(-dy / y), torch.max(-dw / w),
+                         -dphi / phi, -dpsi / psi)
+                theta = torch.where(t > 0.0,
+                                    torch.minimum(step_factor / t, one), one)
+
+            return (x + theta * dx, z + theta * dz,
+                    y + theta * dy, w + theta * dw,
+                    phi + theta * dphi, psi + theta * dpsi,
+                    fac.reg.to(dtype))
+
+        if bool((new_status != _RUNNING).item()):
+            x2, z2, y2, w2, phi2, psi2, reg2 = x, z, y, w, phi, psi, s.reg
+        else:
+            x2, z2, y2, w2, phi2, psi2, reg2 = step()
+
+        # numerical-failure guard: a step with any non-finite value keeps
+        # the last finite iterate and stops SUBOPTIMAL (hsdls.c:151)
+        ok = (torch.isfinite(phi2) & torch.isfinite(psi2)
+              & torch.isfinite(x2).all() & torch.isfinite(z2).all()
+              & torch.isfinite(y2).all() & torch.isfinite(w2).all())
+
+        def pick(new, old):
+            return torch.where(ok, new, old)
+
+        return HsdState(pick(x2, x), pick(z2, z), pick(y2, y),
+                        pick(w2, w), pick(phi2, phi), pick(psi2, psi),
+                        s.iter + 1,
+                        torch.where(ok, new_status, _SUBOPTIMAL),
+                        reg2, mu_best2, stall2)
+
+    return body
+
+
+def _mu(s: HsdState, n_total: int):
+    return (s.z @ s.x + s.w @ s.y + s.phi * s.psi) / n_total
+
+
+def _hsd_loop(A, b, c, f, init: HsdState, *,
+              max_iter, eps, step_factor, beta, epsdiag, refine_tol,
+              pause_mu,
+              gap_tol=1.0e-6,
+              feas_tol=1.0e-6,
+              long_step: bool = False,
+              max_refine: int = 8,
+              trace: bool = False,
+              factor_dtype=None,
+              corrector: str = "mehrotra",
+              ub: UbTail | None = None,
+              deadline: float | None = None):
+    """Run from `init` until the status is decided, max_iter is reached,
+    mu falls to `pause_mu` (a stage boundary; 0.0 = run to convergence) or
+    the time.monotonic() `deadline` passes (checked after each iteration).
+
+    Returns (state, paused): the state NOT de-homogenized, and whether the
+    loop stopped because mu reached pause_mu with the solve still running.
+    """
+    body = make_step(A, b, c, eps=eps, step_factor=step_factor,
+                     beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
+                     gap_tol=gap_tol, feas_tol=feas_tol,
+                     long_step=long_step, max_refine=max_refine,
+                     trace=trace, f=f, factor_dtype=factor_dtype,
+                     corrector=corrector, ub=ub)
+    m, n = A.shape
+    if ub is not None:
+        m = m + ub.idx2.shape[0]
+    pause = torch.full((), pause_mu, dtype=A.dtype, device=A.device)
+    state = init
+    while True:
+        live = (state.status == _RUNNING) & (state.iter < max_iter)
+        if not bool((live & (_mu(state, n + m + 1) > pause)).item()):
+            break
+        state = body(state)
+        if deadline is not None and time.monotonic() > deadline:
+            break
+    paused = bool(((state.status == _RUNNING) & (state.iter < max_iter)
+                   & (_mu(state, n + m + 1) <= pause)).item())
+    return state, paused
+
+
+def finish_state(state: HsdState, max_iter):
+    """Status plus the de-homogenized (x, y, w, z) (hsd.c:277-284)."""
+    status = torch.where(
+        (state.status == _RUNNING) & (state.iter >= max_iter),
+        int(Status.ITERATION_LIMIT), state.status)
+    phi = state.phi
+    return (status, state.x / phi, state.y / phi, state.w / phi,
+            state.z / phi, state.iter)
+
+
+def solve_canon(A, b, c, f, *,
+                max_iter: int = DEFAULT_MAX_ITER,
+                eps: float = 1.0e-12,
+                step_factor: float = 0.95,
+                long_step: bool = False,
+                beta: float = 0.80,
+                epsdiag: float = 1.0e-14,
+                refine_tol: float = 1.0e-10,
+                gap_tol: float = 1.0e-6,
+                feas_tol: float = 1.0e-6,
+                max_refine: int = 8,
+                trace: bool = False,
+                factor_dtype=None,
+                pause_mu: float = 0.0,
+                corrector: str = "mehrotra",
+                ub: UbTail | None = None,
+                init: HsdState | None = None):
+    """Solve max c'x, Ax <= b, x >= 0 via the HSD embedding.
+
+    ub: implicit singleton tail rows (A holds only the head rows; b spans
+    head + tail).  factor_dtype: None = A's dtype, torch.float32 = f32
+    factor with data-precision refinement.  pause_mu > 0 pauses once
+    mu <= pause_mu (status stays RUNNING); resume with `init=`.
+
+    Returns (status, x, y, w, z, iterations, state); x, y, w, z
+    de-homogenized.
+    """
+    if init is None:
+        init = init_state(A, extra_rows=0 if ub is None else ub.idx2.shape[0])
+    out, _ = _hsd_loop(A, b, c, f, init,
+                       max_iter=max_iter, eps=eps, step_factor=step_factor,
+                       beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
+                       gap_tol=gap_tol, feas_tol=feas_tol,
+                       pause_mu=pause_mu, long_step=long_step,
+                       max_refine=max_refine, trace=trace,
+                       factor_dtype=factor_dtype, corrector=corrector, ub=ub)
+    status, x, y, w, z, iters = finish_state(out, max_iter)
+    return status, x, y, w, z, iters, out

@@ -1,0 +1,291 @@
+"""Solver registry and top-level solve(), the port of the hsd/hsdls part of
+vanderbei_tpu/models/registry.py.
+
+Precision ladder (cfg.precision "auto" -> "mixed" once the factored
+dimension is >= cfg.mixed_min_dim): stage 1 runs the whole solve in f32,
+normal matrices through the hand-written syrk kernel, until mu reaches
+cfg.stage1_mu; stage 2 resumes the same state in f64 to the reference
+tolerance.  Canonical dims pad to the JAX package's size classes so that
+both packages iterate on the same system.
+
+Not ported yet: intpt, pd, twophase, the quadratic (QUADS) route to
+intpt, the intpt cross-check retry after a SUBOPTIMAL verdict, and
+precision="dd".
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.canonicalize import (canonicalize, pad_canon, recover_solution,
+                                 CanonLP)
+from ..core.config import SolverConfig
+from ..core.lp import LP, Solution
+from ..core.status import Status
+from ..utils.checkpoint import operands_from_canon
+from . import hsd as _hsd
+
+
+def size_class(dim: int, floor: int = 256) -> int:
+    """Padded size class for dim: powers of two up to 2048, then multiples
+    of 512 (vanderbei_tpu.models.registry.size_class)."""
+    if dim > 2048:
+        return ((dim + 511) // 512) * 512
+    c = floor
+    while c < dim:
+        c *= 2
+    return c
+
+
+def resolve_precision(cfg: SolverConfig, shape) -> str:
+    """"auto" -> "mixed" only where the f32 sprint pays (big factored dim);
+    small problems run f64 direct."""
+    if cfg.precision != "auto":
+        return cfg.precision
+    return "mixed" if min(shape) >= cfg.mixed_min_dim else "f64"
+
+
+def _state_finite(state) -> bool:
+    return bool((torch.isfinite(state.x).all()
+                 & torch.isfinite(state.phi)).item())
+
+
+def _run_staged(run_stage, init_for, cfg: SolverConfig, max_iter: int,
+                mk_args32, mk_args64, stage_knob: float, shape,
+                stages: list):
+    """Two-stage driver: an f32 sprint to stage_knob, then the f64 polish.
+
+    run_stage(args, init, pause, factor_dtype, deadline) -> (state, paused).
+    Appends one record per stage run to `stages`.  Returns the final state.
+    """
+    precision = resolve_precision(cfg, shape)
+    deadline = (None if not np.isfinite(cfg.time_limit)
+                else time.monotonic() + cfg.time_limit)
+
+    def timed(label, args, state, pause, factor_dtype):
+        t0 = time.perf_counter()
+        it0 = int(state.iter)
+        state, paused = run_stage(args, state, pause, factor_dtype, deadline)
+        stages.append(dict(precision=label, iterations=int(state.iter) - it0,
+                           seconds=time.perf_counter() - t0, paused=paused))
+        return state
+
+    state = None
+    warm = False
+    if precision == "mixed":
+        args32 = mk_args32()
+        state = timed("f32", args32, init_for(args32), stage_knob, None)
+        if (not _state_finite(state)
+                or int(state.status) == int(Status.SUBOPTIMAL)):
+            # the f32 sprint diverged (the finite-iterate guard stopped it
+            # SUBOPTIMAL): restart clean in f64 rather than polish it
+            state = None
+        else:
+            state = _hsd.cast_state(state, torch.float64)
+            warm = True
+
+    args64 = mk_args64()
+    if state is None:
+        state = init_for(args64)
+    # the XL f32-factor override applies only to the auto/mixed ladder: an
+    # explicit f64 request means a full f64 factor
+    factor_dtype = (torch.float32
+                    if (precision == "f32factor"
+                        or (cfg.precision in ("auto", "mixed")
+                            and (min(shape) >= cfg.xl_f32factor_dim
+                                 or shape[0] * shape[1]
+                                 >= cfg.xl_f32factor_elems)))
+                    else None)
+    label = "f64" if factor_dtype is None else "f64-data/f32-factor"
+    state = timed(label, args64, state, 0.0, factor_dtype)
+
+    # a warm-started polish that exhausts the budget gets one clean f64
+    # retry: the f32 sprint can wander on degenerate problems
+    if (warm and int(state.status) == int(Status.RUNNING)
+            and int(state.iter) >= max_iter
+            and (deadline is None or time.monotonic() < deadline)):
+        state = timed(label + " retry", args64, init_for(args64), 0.0,
+                      factor_dtype)
+    return state
+
+
+def _hsd_structure_applies(canon: CanonLP) -> bool:
+    k = len(canon.ub_cols)
+    if not (k > 0 and canon.Q is None and (canon.m - k) <= canon.n):
+        return False
+    # a split free variable with a finite upper bound mirrors -1 into its
+    # ub row, so that tail row is NOT a singleton: fall back to dense
+    if canon.free_cols is not None and len(canon.free_cols):
+        if np.intersect1d(canon.free_cols, canon.ub_cols).size:
+            return False
+    return True
+
+
+def _hsd_structured_operands(canon: CanonLP, M1: int | None = None,
+                             K: int | None = None, N: int | None = None):
+    """Split the canonical rows into [general head | singleton ub tail],
+    each padded to its own size class, for the Schur-eliminated KKT path
+    (ops/kkt.UbTail).  Returns None when the structure doesn't apply."""
+    if not _hsd_structure_applies(canon):
+        return None
+    k = len(canon.ub_cols)
+    m1 = canon.m - k
+    n = canon.n
+    M1 = M1 if M1 is not None else size_class(m1)
+    K = K if K is not None else size_class(k)
+    N = N if N is not None else size_class(n)
+    A1 = np.zeros((M1, N), dtype=canon.A.dtype)
+    A1[:m1, :n] = canon.A[:m1, :n]
+    b = np.ones(M1 + K, dtype=canon.A.dtype)
+    b[:m1] = canon.b[:m1]
+    b[M1:M1 + k] = canon.b[m1:m1 + k]
+    c = np.zeros(N, dtype=canon.A.dtype)
+    c[:n] = canon.c[:n]
+    idx2 = np.zeros(K, dtype=np.int32)
+    idx2[:k] = canon.ub_cols
+    w2 = np.zeros(K, dtype=canon.A.dtype)
+    w2[:k] = canon.A[np.arange(m1, m1 + k), canon.ub_cols]
+    return dict(A1=A1, b=b, c=c, idx2=idx2, w2=w2, m1=m1, k=k, M1=M1, K=K)
+
+
+def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
+               long_step: bool = False):
+    max_iter = cfg.max_iter or (
+        _hsd.DEFAULT_MAX_ITER_LS if long_step else _hsd.DEFAULT_MAX_ITER)
+    trace = cfg.verbose >= 2
+    if trace:
+        print(_hsd.HSD_BANNER, flush=True)
+
+    struct = (_hsd_structured_operands(canon)
+              if cfg.use_ub_structure else None)
+    source = canon if struct is None else struct
+    shape = (canon.A.shape if struct is None
+             else (struct["M1"], struct["A1"].shape[1]))
+
+    def run_stage(args, init, pause, factor_dtype, deadline):
+        A, b, c, ub = args
+        sprint = pause > 0.0
+        return _hsd._hsd_loop(
+            A, b, c, canon.f, init, max_iter=max_iter, eps=cfg.hsd_eps,
+            step_factor=cfg.hsd_step_factor, long_step=long_step,
+            beta=cfg.beta, gap_tol=cfg.epssol, feas_tol=cfg.epssol,
+            epsdiag=max(cfg.epsdiag, 1e-8) if sprint else cfg.epsdiag,
+            refine_tol=max(cfg.refine_tol, 1e-4) if sprint else cfg.refine_tol,
+            max_refine=cfg.max_refine, trace=trace,
+            factor_dtype=factor_dtype, pause_mu=pause,
+            corrector=cfg.hsd_corrector, ub=ub, deadline=deadline)
+
+    def init_for(args):
+        ub = args[3]
+        return _hsd.init_state(
+            args[0], extra_rows=0 if ub is None else ub.idx2.shape[0])
+
+    state = _run_staged(
+        run_stage, init_for, cfg, max_iter,
+        lambda: operands_from_canon(source, device, torch.float32),
+        lambda: operands_from_canon(source, device, torch.float64),
+        cfg.stage1_mu, shape, stages)
+    status, x, y, w, z, iters = _hsd.finish_state(state, max_iter)
+    if struct is not None:
+        # reassemble canonical row order [head m1 | ub tail k] from the
+        # padded [M1 | K] layout
+        m1, k, M1 = struct["m1"], struct["k"], struct["M1"]
+        y = torch.cat([y[:m1], y[M1:M1 + k]])
+        w = torch.cat([w[:m1], w[M1:M1 + k]])
+    host = lambda t: t.cpu().numpy()
+    return int(status), host(x), host(y), host(w), host(z), int(iters)
+
+
+SOLVERS = {
+    "hsd": _solve_hsd,
+    "hsdls": lambda canon, cfg, device, stages: _solve_hsd(
+        canon, cfg, device, stages, long_step=True),
+}
+
+
+def get_solver(method: str):
+    try:
+        return SOLVERS[method]
+    except KeyError:
+        raise ValueError(
+            f"unknown or unported method {method!r}; available: "
+            f"{sorted(SOLVERS)}")
+
+
+def _pad(canon: CanonLP, pad_to, structured: bool) -> CanonLP:
+    if pad_to == "auto" and not structured:
+        # the structured (UbTail) path pads its head and tail itself
+        return pad_canon(canon, size_class(canon.m), size_class(canon.n))
+    if isinstance(pad_to, int) and pad_to != 1:
+        return pad_canon(canon, -(-canon.m // pad_to) * pad_to,
+                         -(-canon.n // pad_to) * pad_to)
+    return canon
+
+
+def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
+          pad_to: int | str = "auto", device="cuda") -> Solution:
+    """Canonicalize and solve an LP on `device` (the analogue of solvelp,
+    solve.c:28).  device is explicit: "cuda" (the default) raises when no
+    CUDA device is present; pass "cpu" to run the plain torch versions.
+
+    pad_to: "auto" pads canonical dims to the size classes, as the JAX
+    package does; an int pads to that multiple (1 = exact dims).
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("solve(device='cuda'): no CUDA device is "
+                           "available; pass device='cpu' explicitly")
+    cfg = config or SolverConfig()
+    cfg = cfg.with_(method=method).apply_lp_params(lp)
+    solver = get_solver(method)
+    if cfg.precision == "dd":
+        raise NotImplementedError(
+            "precision='dd' (also chosen by SIGFIG > 9) is not ported yet")
+    if lp.qnz:
+        raise NotImplementedError(
+            "quadratic objectives need the intpt solver, which is not "
+            "ported yet")
+    canon = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
+                         free_vars=cfg.free_vars, scale=cfg.scale)
+    if canon.status != int(Status.RUNNING):
+        n, m0 = lp.n, lp.m
+        return Solution(status=canon.status, x=np.zeros(n), y=np.zeros(m0),
+                        w=np.zeros(m0), z=np.zeros(n), primal_obj=0.0,
+                        dual_obj=0.0, stages=[])
+    structured = cfg.use_ub_structure and _hsd_structure_applies(canon)
+    canon = _pad(canon, pad_to, structured)
+    stages: list = []
+    t0 = time.perf_counter()
+    status, x, y, w, z, iters = solver(canon, cfg, device, stages)
+    if (cfg.quality_retries and status == int(Status.SUBOPTIMAL)
+            and cfg.scale != "none"):
+        # the quality gate flagged a converged-but-poor point: re-solve
+        # UNSCALED (the equilibration can steer a few instances to a
+        # perturbed optimum); keep the retry only if it is OPTIMAL
+        if cfg.verbose:
+            print("hsd suboptimal: retrying unscaled", flush=True)
+        canon2 = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
+                              free_vars=cfg.free_vars, scale="none")
+        canon2 = _pad(canon2, pad_to, cfg.use_ub_structure
+                      and _hsd_structure_applies(canon2))
+        st2, x2, y2, w2, z2, it2 = solver(canon2, cfg.with_(scale="none"),
+                                          device, stages)
+        if st2 == int(Status.OPTIMAL):
+            status, x, y, w, z = st2, x2, y2, w2, z2
+            iters = iters + it2
+            canon = canon2
+    if (cfg.quality_retries and status == int(Status.SUBOPTIMAL)
+            and cfg.verbose):
+        print("hsd suboptimal: the intpt cross-check retry is not ported; "
+              "the verdict stays SUBOPTIMAL", flush=True)
+    if status == int(Status.RUNNING):
+        # a TIMLIM deadline stop leaves the internal RUNNING sentinel
+        status = int(Status.ITERATION_LIMIT)
+    elapsed = time.perf_counter() - t0
+    x, y, w, z, pobj, dobj, b_canon = recover_solution(canon, x, y, w, z)
+    return Solution(status=int(status), x=x, y=y, w=w, z=z,
+                    primal_obj=pobj, dual_obj=dobj, iterations=int(iters),
+                    solve_time_s=elapsed, b_canon=b_canon, stages=stages)
