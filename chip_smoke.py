@@ -6,11 +6,16 @@
 Phases, one line each; any failure exits non-zero and prints no result:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: compile csrc/scaled_syrk.cu with nvcc (or reuse the build).
+2. build: compile csrc/scaled_syrk.cu with nvcc (or reuse the build), and
+   count the HGMMA (wgmma) instructions in the library's SASS: none fails.
 3. kernel: the scaled-syrk kernel against its plain torch version and an
    f64 product, at the solver's head shape (2560, 4096), a ragged shape, the
-   strided transposed view of the dual form, a batch of 3 and a column
-   scale spread over 1e-8..1e8; kernel and plain times at (2560, 4096).
+   strided transposed view of the dual form, a batch of 3, a column scale
+   spread over 1e-8..1e8, and the edges of both copy paths (ragged
+   transposed, a column step, an unaligned base, a 7 x 5 X, a batch of
+   transposed views); kernel and plain times, and the kernel's
+   TFLOP/s of lower-tile work, at (2560, 4096) (TMA copies), its transposed
+   view (TMA) and (1000, 1537) (cp.async copies).
 4. solve: a seeded 2000 x 4000 bounded LP (200 equality rows, 2% dense),
    written to MPS and solved through the CLI on the card; it must be
    OPTIMAL within 1e-8 of scipy's HiGHS on the LP read back from the file,
@@ -54,12 +59,14 @@ def check_kernel(syrk, torch):
     plain ms)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def inputs(shape, spread=False, transposed=False):
+    def inputs(shape, spread=False, transposed=False, step=1, offset=0):
         *lead, m, n = shape
-        xs = (*lead, n, m) if transposed else shape
+        xs = (*lead, n, m) if transposed else (*lead, m, offset + n * step)
         X = torch.randn(xs, generator=gen, device="cuda")
         if transposed:
             X = X.mT                      # strides (.., 1, m): read in place
+        else:
+            X = X[..., offset::step]      # a view: unaligned base or stride
         u = torch.rand((*lead, n), generator=gen, device="cuda")
         s = 10.0 ** (16.0 * u - 8.0) if spread else 0.5 + 1.5 * u
         e = 0.5 + 1.5 * torch.rand((*lead, m), generator=gen, device="cuda")
@@ -70,7 +77,15 @@ def check_kernel(syrk, torch):
              ("ragged", (1000, 1537), {}),
              ("transposed", (2560, 4096), {"transposed": True}),
              ("batch", (3, 256, 512), {}),
-             ("spread", (2560, 4096), {"spread": True})]
+             ("spread", (2560, 4096), {"spread": True}),
+             # edges of the copy paths: cp.async of the transposed view,
+             # a column step, an unaligned base, a tile smaller than one
+             # wgmma, a batch of transposed views by TMA
+             ("ragged-transposed", (1001, 1537), {"transposed": True}),
+             ("strided", (300, 700), {"step": 2}),
+             ("offset", (257, 513), {"offset": 1}),
+             ("tiny", (7, 5), {}),
+             ("batch-transposed", (2, 300, 200), {"transposed": True})]
     head_err = None
     for label, shape, kw in cases:
         X, s, e = inputs(shape, **kw)
@@ -89,7 +104,8 @@ def check_kernel(syrk, torch):
                    <= 2 * BOUND * G).all().item())
         if label == "pallas-test":
             ok = ok and torch.allclose(Mk.double(), M64, rtol=RTOL, atol=ATOL)
-        print(f"kernel {label} {tuple(X.shape)} strides {X.stride()}: "
+        print(f"kernel {label} {tuple(X.shape)} strides {X.stride()} "
+              f"[{syrk.route(X)}]: "
               f"max|k-f64|/G {rk:.3e}  max|plain-f64|/G {rp:.3e}  "
               f"max|k-plain| {kp:.3e}  {'ok' if ok else 'MISMATCH'}",
               flush=True)
@@ -97,8 +113,6 @@ def check_kernel(syrk, torch):
             fail(f"kernel disagrees at {label} {tuple(X.shape)}")
         if label == "head":
             head_err = kp
-
-    X, s, e = inputs((2560, 4096))
 
     def ms(fn, reps=20):
         for _ in range(3):
@@ -113,16 +127,41 @@ def check_kernel(syrk, torch):
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    plain = lambda: syrk.scaled_syrk_reference(X, s, e)
-    kern = lambda: syrk.scaled_syrk_cuda(X, s, e)
-    p1, k1, k2, p2 = ms(plain), ms(kern), ms(kern), ms(plain)
-    t_k, t_p = (k1 + k2) / 2, (p1 + p2) / 2
-    flops = 2.0 * 2560 * 2560 * 4096
-    print(f"kernel time (2560, 4096): kernel {t_k:.4f} ms "
-          f"({k1:.4f}, {k2:.4f})  plain torch {t_p:.4f} ms "
-          f"({p1:.4f}, {p2:.4f})  [{flops / t_k / 1e9:.1f} / "
-          f"{flops / t_p / 1e9:.1f} TFLOP/s of a full product]", flush=True)
+    times = {}
+    for label, shape, kw, want in (
+            ("head", (2560, 4096), {}, "tma"),
+            ("transposed", (2560, 4096), {"transposed": True}, "tma"),
+            ("ragged", (1000, 1537), {}, "cp.async")):
+        X, s, e = inputs(shape, **kw)
+        if syrk.route(X) != want:
+            fail(f"{label} {tuple(X.shape)} took {syrk.route(X)}, not {want}")
+        plain = lambda: syrk.scaled_syrk_reference(X, s, e)
+        kern = lambda: syrk.scaled_syrk_cuda(X, s, e)
+        p1, k1, k2, p2 = ms(plain), ms(kern), ms(kern), ms(plain)
+        t_k, t_p = (k1 + k2) / 2, (p1 + p2) / 2
+        times[label] = (t_k, t_p)
+        rate = lower_tile_flops(*shape) / t_k / 1e9
+        print(f"kernel time {label} {tuple(X.shape)} [{want}]: kernel "
+              f"{t_k:.4f} ms ({k1:.4f}, {k2:.4f})  plain torch {t_p:.4f} ms "
+              f"({p1:.4f}, {p2:.4f})  [{rate:.1f} TFLOP/s of lower-tile "
+              f"work]", flush=True)
+    t_k, t_p = times["head"]
     return head_err, t_k, t_p
+
+
+def lower_tile_flops(m, n, tile=128):
+    """2n flops for every entry of M in the kernel's lower tiles (i >= j)."""
+    sizes = [min(tile, m - r) for r in range(0, m, tile)]
+    return 2.0 * n * sum(a * b for i, a in enumerate(sizes)
+                         for b in sizes[:i + 1])
+
+
+def hgmma_count(library: str, nvcc: str) -> int:
+    """HGMMA (wgmma) instructions in the built library's SASS."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                         text=True, check=True).stdout
+    return sum(line.count("HGMMA") for line in out.splitlines())
 
 
 def highs_objective(lp):
@@ -209,11 +248,19 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    syrk.build()
+    library = syrk.build()
     ptxas = " ".join(l.split("info    :")[-1].strip()
                      for l in syrk.build_log.splitlines() if "Used" in l)
-    print(f"build: {syrk.LIBRARY} in {time.perf_counter() - t0:.2f} s "
+    print(f"build: {library} in {time.perf_counter() - t0:.2f} s "
           f"({ptxas or 'cached build'})", flush=True)
+    for line in syrk.build_log.splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            print(f"build: {line.strip()}", flush=True)
+    hgmma = hgmma_count(library, syrk._nvcc())
+    print(f"build: {hgmma} HGMMA instructions in the library's SASS",
+          flush=True)
+    if hgmma == 0:
+        fail("the built kernel has no wgmma (HGMMA) instruction")
 
     err, t_k, t_p = check_kernel(syrk, torch)
     launches = solve_end_to_end(syrk, torch)

@@ -8,15 +8,18 @@ is no size cutoff, no environment switch and no fallback: a CUDA launch
 that fails raises.
 
 The kernel is compiled at first use with nvcc into a shared library with a
-plain C interface under `_build/` (rebuilt when the source is newer) and
-bound with ctypes; no PyTorch headers are compiled, so the build takes
-seconds.  `launches` counts the kernel's launches, so a run can show that
-the solver went through it.
+plain C interface under `_build/` and bound with ctypes; no PyTorch headers
+are compiled, so the build takes seconds.  The library's file name carries
+a hash of every source under csrc/ and of the nvcc flags, so an edit to
+any of them builds a new library and a stale one is never loaded.
+`launches` counts the kernel's launches, so a run can show that the solver
+went through it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -24,12 +27,12 @@ import subprocess
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "scaled_syrk.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "scaled_syrk.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libscaled_syrk.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "static",
-              "-Xptxas", "-v"]
+              "-ldl", "-Xptxas", "-v"]
 
 launches = 0          # kernel launches since the last reset
 build_log = ""        # nvcc's output (ptxas register/spill report) of a build
@@ -54,22 +57,34 @@ def _nvcc() -> str:
     return path
 
 
+def library_path() -> str:
+    """_build/libscaled_syrk-<hash>.so, the hash taken over the nvcc flags
+    and the name and bytes of every file under csrc/."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        h.update(b"\0" + name.encode() + b"\0")
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libscaled_syrk-{h.hexdigest()[:16]}.so")
+
+
 def build(force: bool = False) -> str:
-    """Compile csrc/scaled_syrk.cu into _build/ if missing or stale."""
+    """Compile csrc/scaled_syrk.cu into _build/ unless a library built from
+    the same sources and flags is there; returns its path."""
     global build_log
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
+    library = library_path()
+    if not force and os.path.exists(library):
+        return library
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    tmp = f"{library}.{os.getpid()}.tmp"
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     build_log = proc.stdout + proc.stderr
-    return LIBRARY
+    return library
 
 
 def _load():
@@ -80,6 +95,9 @@ def _load():
         lib.vt_scaled_syrk_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                            i64, i64, i64, i64, i64, ptr]
         lib.vt_scaled_syrk_f32.restype = i32
+        lib.vt_scaled_syrk_route.argtypes = [ptr, i32, i32, i32, i64, i64,
+                                             i64]
+        lib.vt_scaled_syrk_route.restype = i32
         lib.vt_cuda_error_string.argtypes = [i32]
         lib.vt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -111,8 +129,6 @@ def scaled_syrk_cuda(X, s, e):
     if min(X.stride()) < 0 or s.stride(-1) != 1 or e.stride(-1) != 1:
         raise ValueError("scaled_syrk: X needs non-negative strides and s, e "
                          "unit stride along their last dimension")
-    if B > 65535:
-        raise ValueError(f"scaled_syrk: batch {B} exceeds the grid limit")
     lib = _load()
     M = torch.empty((B, m, m), device=X.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -126,6 +142,16 @@ def scaled_syrk_cuda(X, s, e):
         raise RuntimeError("scaled_syrk kernel launch failed: "
                            + lib.vt_cuda_error_string(rc).decode())
     return M if batched else M[0]
+
+
+def route(X) -> str:
+    """How the kernel copies this X (m, n) or (B, m, n) into shared memory:
+    "tma" when its base and non-unit strides are 16-byte aligned and one
+    stride is unit, else "cp.async"."""
+    X3 = X if X.dim() == 3 else X.unsqueeze(0)
+    B, m, n = X3.shape
+    tma = _load().vt_scaled_syrk_route(X3.data_ptr(), B, m, n, *X3.stride())
+    return "tma" if tma else "cp.async"
 
 
 def scaled_syrk(X, s, e):
