@@ -49,17 +49,24 @@ def resolve_precision(cfg: SolverConfig, shape) -> str:
 
 
 def _state_finite(state) -> bool:
-    return bool((torch.isfinite(state.x).all()
-                 & torch.isfinite(state.phi)).item())
+    """x finite, and phi too for an HSD state (an intpt state has none)."""
+    ok = torch.isfinite(state.x).all()
+    if hasattr(state, "phi"):
+        ok = ok & torch.isfinite(state.phi)
+    return bool(ok.item())
 
 
-def _run_staged(run_stage, init_for, cfg: SolverConfig, max_iter: int,
-                mk_args32, mk_args64, stage_knob: float, shape,
+def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
+                max_iter: int, mk_args32, mk_args64, stage_knob: float, shape,
                 stages: list):
-    """Two-stage driver: an f32 sprint to stage_knob, then the f64 polish.
+    """Two-stage driver of the IPM solvers: an f32 sprint to stage_knob,
+    then the f64 polish.
 
-    run_stage(args, init, pause, factor_dtype, deadline) -> (state, paused).
-    Appends one record per stage run to `stages`.  Returns the final state.
+    run_stage(args, init, pause, factor_dtype, deadline) -> (state, paused),
+    where paused means the solve reached the stage boundary (mu for hsd,
+    the duality gap for intpt); solver_mod.cast_state moves the paused
+    state to f64.  Appends one record per stage run to `stages`.  Returns
+    the final state.
     """
     precision = resolve_precision(cfg, shape)
     deadline = (None if not np.isfinite(cfg.time_limit)
@@ -84,7 +91,7 @@ def _run_staged(run_stage, init_for, cfg: SolverConfig, max_iter: int,
             # SUBOPTIMAL): restart clean in f64 rather than polish it
             state = None
         else:
-            state = _hsd.cast_state(state, torch.float64)
+            state = solver_mod.cast_state(state, torch.float64)
             warm = True
 
     args64 = mk_args64()
@@ -184,7 +191,7 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
             args[0], extra_rows=0 if ub is None else ub.idx2.shape[0])
 
     state = _run_staged(
-        run_stage, init_for, cfg, max_iter,
+        _hsd, run_stage, init_for, cfg, max_iter,
         lambda: operands_from_canon(source, device, torch.float32),
         lambda: operands_from_canon(source, device, torch.float64),
         cfg.stage1_mu, shape, stages)
