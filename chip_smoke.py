@@ -13,14 +13,34 @@ Phases, one line each; any failure exits non-zero and prints no result:
    strided transposed view of the dual form, a batch of 3, a column scale
    spread over 1e-8..1e8, and the edges of both copy paths (ragged
    transposed, a column step, an unaligned base, a 7 x 5 X, a batch of
-   transposed views); kernel and plain times, and the kernel's
-   TFLOP/s of lower-tile work, at (2560, 4096) (TMA copies), its transposed
-   view (TMA) and (1000, 1537) (cp.async copies).
+   transposed views) and intpt's dual-form A' (4096, 6656); kernel and
+   plain times, and the kernel's TFLOP/s of lower-tile work, at (2560,
+   4096) (TMA copies), its transposed view (TMA), (1000, 1537) (cp.async
+   copies) and the dual-form A' (TMA).
 4. solve: a seeded 2000 x 4000 bounded LP (200 equality rows, 2% dense),
    written to MPS and solved through the CLI on the card; it must be
    OPTIMAL within 1e-8 of scipy's HiGHS on the LP read back from the file,
    run an f32 stage, and launch the kernel.
-5. the kernels' JSON line, then {"ok": true, "device": {...}} last.
+5. intpt: the smoke LP with its equality rows widened to ranges of width 1
+   (the same canonical shape, 6200 x 4000, padded to 6656 x 4096) through
+   the CLI with --method intpt: OPTIMAL within 1e-6 of HiGHS (intpt stops
+   at a 1e-6 gap), an f32 stage, and every kernel launch on the
+   transposed (dual-form A') layout.
+6. qp: a seeded 500 x 1000 bounded LP plus a banded PSD Q, written with
+   QUADS and solved through the CLI with --method hsd on the card, which
+   must route it to intpt and launch the kernel; the same file solved in
+   process on the CPU (the plain versions) must agree: both OPTIMAL,
+   iterations within 3, objectives within 1e-8; the CPU point satisfies
+   the rows and bounds of the file to 1e-6 relative.
+7. dd: a seeded 500 x 1000 LP through the CLI with --precision dd
+   --metrics: OPTIMAL within 1e-8 of HiGHS; the CSV finite, one row per
+   iteration of its run (iter 0..k-1), mu falling by at least 1e8.
+8. simplex: a seeded 300 x 600 LP through the CLI with --method pd and
+   --method twophase: each OPTIMAL within 1e-8 of HiGHS; pivots, seconds.
+9. native: the smoke MPS read with the native reader (built by g++ here)
+   equals the Python reader's LP, array for array.
+10. the kernels' JSON line (launches split by path: hsd, intpt, qp), the
+   card line, then {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -40,6 +60,8 @@ import time
 BOUND = 1e-4
 RTOL, ATOL = 2e-5, 2e-4
 OBJ_RTOL = 1e-8
+INTPT_RTOL = 1e-6          # intpt stops at ipm_eps = 1e-6 (core/config.py)
+FEAS_RTOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -85,7 +107,10 @@ def check_kernel(syrk, torch):
              ("strided", (300, 700), {"step": 2}),
              ("offset", (257, 513), {"offset": 1}),
              ("tiny", (7, 5), {}),
-             ("batch-transposed", (2, 300, 200), {"transposed": True})]
+             ("batch-transposed", (2, 300, 200), {"transposed": True}),
+             # intpt's dual form on the ranged smoke LP (phase 5): A' of
+             # the padded 6656 x 4096 canonical A
+             ("dual-form", (4096, 6656), {"transposed": True})]
     head_err = None
     for label, shape, kw in cases:
         X, s, e = inputs(shape, **kw)
@@ -131,7 +156,8 @@ def check_kernel(syrk, torch):
     for label, shape, kw, want in (
             ("head", (2560, 4096), {}, "tma"),
             ("transposed", (2560, 4096), {"transposed": True}, "tma"),
-            ("ragged", (1000, 1537), {}, "cp.async")):
+            ("ragged", (1000, 1537), {}, "cp.async"),
+            ("dual-form", (4096, 6656), {"transposed": True}, "tma")):
         X, s, e = inputs(shape, **kw)
         if syrk.route(X) != want:
             fail(f"{label} {tuple(X.shape)} took {syrk.route(X)}, not {want}")
@@ -186,7 +212,8 @@ def highs_objective(lp):
 
 
 def solve_end_to_end(syrk, torch, m=2000, n=4000, device="cuda"):
-    """Phase 4: returns the kernel's launch count in the solve."""
+    """Phase 4: returns (the kernel's launch count in the solve, the HiGHS
+    objective, the MPS path)."""
     from vanderbei_tpu_torch import cli, read_mps, write_lp
     from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
     work = os.path.join(syrk.BUILD_DIR, "smoke")
@@ -199,7 +226,7 @@ def solve_end_to_end(syrk, torch, m=2000, n=4000, device="cuda"):
     write_lp(random_bounded_lp(m, n, density=0.02, seed=0), mps)
     t_gen = time.perf_counter() - t0
 
-    syrk.launches = 0
+    syrk.reset_counts()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -233,7 +260,211 @@ def solve_end_to_end(syrk, torch, m=2000, n=4000, device="cuda"):
           flush=True)
     if not rel <= OBJ_RTOL:
         fail(f"objective {obj!r} is {rel:.3e} from HiGHS {ref!r}")
+    return launches, ref, mps
+
+
+def run_cli(args):
+    """cli.main(args) in this process; fails unless it returns 0.  Returns
+    (stdout, seconds, status line, objective, iterations, stages)."""
+    from vanderbei_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    if rc != 0:
+        fail(f"cli {args} returned {rc}")
+    from vanderbei_tpu_torch.core.status import STATUS_MESSAGES
+    status = next((l for l in text.splitlines() if l in STATUS_MESSAGES), "")
+    obj = float(re.search(r"primal objective: (\S+)", text).group(1))
+    iters = int(re.search(r"iterations: (\d+)", text).group(1))
+    stages = [(p, int(k), float(t)) for p, k, t in
+              re.findall(r"stage (.+?): iterations (\d+), ([0-9.]+) s", text)]
+    return text, secs, status, obj, iters, stages
+
+
+def stage_text(stages):
+    return ", ".join(f"{p} {k} it {t:.3f} s" for p, k, t in stages)
+
+
+def check_intpt(syrk, mps, device="cuda"):
+    """Phase 5: returns the kernel's launch count in the solve.
+
+    intpt runs on the smoke LP with each equality row b <= a'x <= b
+    widened to b <= a'x <= b + 1, which keeps the canonical shape (an
+    equality row, like a ranged one, appends its upper side as a row).
+    On the smoke LP itself intpt, the JAX package's as much as this one,
+    stops DUAL_INFEASIBLE: canonicalize turns each equality into a pair of
+    opposed inequalities, so the primal has no interior, and the dual-form
+    KKT solve breaks down at iteration 29 (PERF.md)."""
+    import numpy as np
+    from vanderbei_tpu_torch import read_mps, write_lp
+    lp = read_mps(mps)
+    lp.r = np.where(lp.r == 0.0, 1.0, lp.r)
+    ranged = mps[:-len(".mps")] + "r.mps"
+    write_lp(lp, ranged)
+    ref = highs_objective(read_mps(ranged))
+    syrk.reset_counts()
+    text, secs, status, obj, iters, stages = run_cli(
+        [ranged, "--method", "intpt", "--device", device, "--no-out"])
+    launches, routes = syrk.launches, dict(syrk.route_launches)
+    if status != "optimal solution":
+        fail(f"intpt not optimal:\n{text}")
+    if not any(p == "f32" and k > 0 for p, k, _ in stages):
+        fail(f"intpt ran no f32 stage: {stages}")
+    if launches <= 0:
+        fail("intpt launched the scaled_syrk kernel 0 times")
+    if any(not key.endswith("/transposed") for key in routes):
+        fail(f"intpt launched the kernel off the transposed layout: {routes}")
+    rel = abs(obj - ref) / max(1.0, abs(ref))
+    print(f"intpt on the ranged smoke LP on {device}: OPTIMAL obj {obj!r} vs HiGHS "
+          f"{ref!r} rel {rel:.3e}; {iters} iterations [{stage_text(stages)}];"
+          f" kernel launches {launches} {routes}; cli {secs:.2f} s",
+          flush=True)
+    if not rel <= INTPT_RTOL:
+        fail(f"intpt objective {obj!r} is {rel:.3e} from HiGHS {ref!r}")
     return launches
+
+
+def max_violation(lp, x):
+    """Largest violation of b <= Ax <= b + r and l <= x <= u, each relative
+    to 1 + |its bound|."""
+    import numpy as np
+    from scipy.sparse import csc_matrix
+    act = csc_matrix((lp.A, lp.iA, lp.kA), shape=(lp.m, lp.n)) @ x
+
+    def worst(over, bound):
+        fin = np.isfinite(bound)
+        return np.max(over[fin] / (1.0 + np.abs(bound[fin])), initial=0.0)
+
+    hi = lp.b + lp.r
+    return max(worst(lp.b - act, lp.b), worst(act - hi, hi),
+               worst(lp.l - x, lp.l), worst(x - lp.u, lp.u))
+
+
+def check_qp(syrk, work, device="cuda", m=500, n=1000):
+    """Phase 6: returns the kernel's launch count in the card's solve."""
+    import vanderbei_tpu_torch as vtt
+    from vanderbei_tpu_torch.utils.randlp import random_bounded_qp
+    mps = os.path.join(work, f"randq{m}.mps")
+    vtt.write_lp(random_bounded_qp(m, n, seed=0), mps)
+    lp = vtt.read_mps(mps)
+    syrk.reset_counts()
+    text, secs, status, obj, iters, stages = run_cli(
+        [mps, "--method", "hsd", "--device", device, "--no-out"])
+    launches = syrk.launches
+    route_line = "QUADS present: routing method 'hsd' -> 'intpt' (QP-capable)"
+    if route_line not in text.splitlines():
+        fail(f"the QP was not routed to intpt:\n{text}")
+    if status != "optimal solution":
+        fail(f"QP not optimal on {device}:\n{text}")
+    if launches <= 0:
+        fail("the QP solve launched the scaled_syrk kernel 0 times")
+    t0 = time.perf_counter()
+    cpu = vtt.solve(lp, method="hsd", device="cpu")
+    t_cpu = time.perf_counter() - t0
+    rel = abs(obj - cpu.primal_obj) / max(1.0, abs(cpu.primal_obj))
+    viol = max_violation(lp, cpu.x)
+    print(f"qp {m}x{n} (QUADS, routed to intpt) on {device}: OPTIMAL obj "
+          f"{obj!r}, {iters} iterations [{stage_text(stages)}], kernel "
+          f"launches {launches}, cli {secs:.2f} s; cpu (plain versions): "
+          f"status {cpu.status} obj {cpu.primal_obj!r}, {cpu.iterations} "
+          f"iterations, {t_cpu:.2f} s; rel {rel:.3e}; cpu point's max "
+          f"row/bound violation {viol:.3e}", flush=True)
+    if cpu.status != 0:
+        fail(f"the CPU QP solve ended with status {cpu.status}")
+    if abs(iters - cpu.iterations) > 3:
+        fail(f"QP iterations {iters} on {device} vs {cpu.iterations} on cpu")
+    if not rel <= OBJ_RTOL:
+        fail(f"QP objective {obj!r} is {rel:.3e} from the CPU's")
+    if not viol <= FEAS_RTOL:
+        fail(f"the QP's primal point violates the file by {viol:.3e}")
+    return launches
+
+
+def check_dd_metrics(work, device="cuda", m=500, n=1000):
+    """Phase 7."""
+    import numpy as np
+    import vanderbei_tpu_torch as vtt
+    from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
+    mps = os.path.join(work, f"rand{m}.mps")
+    csv = os.path.join(work, f"rand{m}.metrics.csv")
+    if os.path.exists(csv):
+        os.remove(csv)
+    vtt.write_lp(random_bounded_lp(m, n, seed=1), mps)
+    text, secs, status, obj, iters, stages = run_cli(
+        [mps, "--precision", "dd", "--metrics", csv, "--device", device,
+         "--no-out"])
+    if status != "optimal solution":
+        fail(f"dd not optimal:\n{text}")
+    ref = highs_objective(vtt.read_mps(mps))
+    rel = abs(obj - ref) / max(1.0, abs(ref))
+    rows = np.genfromtxt(csv, delimiter=",", names=True)
+    mu = rows["mu"]
+    drop = mu[0] / mu[-1]
+    print(f"dd {m}x{n} on {device}: OPTIMAL obj {obj!r} vs HiGHS {ref!r} rel "
+          f"{rel:.3e}; {iters} iterations [{stage_text(stages)}]; cli "
+          f"{secs:.2f} s (solve + metrics run); metrics: {len(rows)} rows, "
+          f"mu {mu[0]:.3e} -> {mu[-1]:.3e} (x{drop:.2e})", flush=True)
+    if not rel <= OBJ_RTOL:
+        fail(f"dd objective {obj!r} is {rel:.3e} from HiGHS {ref!r}")
+    if not all(np.isfinite(rows[k]).all() for k in rows.dtype.names):
+        fail("the metrics CSV holds a non-finite value")
+    if not (len(rows) > 1
+            and np.array_equal(rows["iter"], np.arange(len(rows)))):
+        fail("the metrics CSV is not one row per iteration")
+    if not drop >= 1e8:
+        fail(f"mu fell only x{drop:.2e} over the metrics run")
+
+
+def check_simplex(work, device="cuda", m=300, n=600):
+    """Phase 8."""
+    import vanderbei_tpu_torch as vtt
+    from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
+    mps = os.path.join(work, f"rand{m}.mps")
+    vtt.write_lp(random_bounded_lp(m, n, seed=0), mps)
+    ref = highs_objective(vtt.read_mps(mps))
+    for method in ("pd", "twophase"):
+        text, secs, status, obj, pivots, stages = run_cli(
+            [mps, "--method", method, "--device", device, "--no-out"])
+        if status != "optimal solution":
+            fail(f"{method} not optimal:\n{text}")
+        rel = abs(obj - ref) / max(1.0, abs(ref))
+        loop_s = stages[0][2]
+        print(f"{method} {m}x{n} on {device}: OPTIMAL obj {obj!r} vs HiGHS "
+              f"{ref!r} rel {rel:.3e}; {pivots} pivots in {loop_s:.3f} s "
+              f"({pivots / loop_s:.0f} pivots/s), cli {secs:.2f} s",
+              flush=True)
+        if not rel <= OBJ_RTOL:
+            fail(f"{method} objective {obj!r} is {rel:.3e} from HiGHS")
+
+
+def check_native(mps):
+    """Phase 9."""
+    import dataclasses
+    import numpy as np
+    from vanderbei_tpu_torch import native
+    from vanderbei_tpu_torch.io.mps import read_mps
+    t0 = time.perf_counter()
+    got = read_mps(mps, engine="native")
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = read_mps(mps, engine="python")
+    t_python = time.perf_counter() - t0
+    # the native reader leaves the RHS/RANGES/BOUNDS set names empty
+    skip = ("rhs_name", "ranges_name", "bounds_name")
+    for f in dataclasses.fields(want):
+        if f.name in skip:
+            continue
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        same = (np.array_equal(a, b) and np.asarray(a).dtype
+                == np.asarray(b).dtype) if isinstance(a, np.ndarray) else a == b
+        if not same:
+            fail(f"native reader differs from the python reader in {f.name}")
+    print(f"native reader ({native.library_path()}): {want.m} x {want.n}, "
+          f"{want.nz} nonzeros, equal to the python reader's LP; "
+          f"{t_native:.3f} s vs {t_python:.3f} s", flush=True)
 
 
 def main() -> int:
@@ -263,14 +494,21 @@ def main() -> int:
         fail("the built kernel has no wgmma (HGMMA) instruction")
 
     err, t_k, t_p = check_kernel(syrk, torch)
-    launches = solve_end_to_end(syrk, torch)
+    by_path = {}
+    by_path["hsd"], _, mps = solve_end_to_end(syrk, torch)
+    by_path["intpt"] = check_intpt(syrk, mps)
+    work = os.path.dirname(mps)
+    by_path["qp"] = check_qp(syrk, work)
+    check_dd_metrics(work)
+    check_simplex(work)
+    check_native(mps)
 
     print(json.dumps({"kernels": [{
         "name": "scaled_syrk", "route": "cuda",
         "source": "vanderbei_tpu_torch/csrc/scaled_syrk.cu",
         "replaces": "vanderbei_tpu/ops/pallas_kernels.py:35",
-        "launches": launches, "max_abs_err": err, "ms": t_k,
-        "plain_ms": t_p}]}), flush=True)
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": err, "ms": t_k, "plain_ms": t_p}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

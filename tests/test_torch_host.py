@@ -1,21 +1,26 @@
-"""The port's numpy host layers against vanderbei_tpu's: the MPS reader,
-canonicalize and the writers must give equal output (arrays exactly equal,
-files byte-equal) on the same inputs."""
+"""The port's numpy host layers against vanderbei_tpu's: the MPS readers,
+the model builder, canonicalize, the writers and the checkpoints must give
+equal output (arrays exactly equal, files byte-equal) on the same inputs."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 
 from tests.test_mps import row, simple_lines
+from vanderbei_tpu.core import builder as jbuilder
 from vanderbei_tpu.core import canonicalize as jcanon
 from vanderbei_tpu.core import lp as jlp
 from vanderbei_tpu.io import mps as jmps
 from vanderbei_tpu.io import writer as jwriter
+from vanderbei_tpu_torch import native as tnative
+from vanderbei_tpu_torch.core import builder as tbuilder
 from vanderbei_tpu_torch.core import canonicalize as tcanon
 from vanderbei_tpu_torch.core import lp as tlp
 from vanderbei_tpu_torch.io import mps as tmps
 from vanderbei_tpu_torch.io import writer as twriter
+from vanderbei_tpu_torch.utils import checkpoint as tcheckpoint
 from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 
 TEXTS = {
@@ -99,7 +104,8 @@ def _general_lp(seed):
 @pytest.mark.parametrize("key", sorted(TEXTS))
 def test_read_mps_equal(tmp_path, key):
     path = _write(tmp_path, key)
-    _assert_same(jmps.read_mps(path, engine="python"), tmps.read_mps(path))
+    _assert_same(jmps.read_mps(path, engine="python"),
+                 tmps.read_mps(path, engine="python"))
 
 
 def _lps(tmp_path):
@@ -159,3 +165,72 @@ def test_config_equal(tmp_path):
         want = JConfig(precision=prec).apply_lp_params(_jax_lp(lp))
         got = TConfig(precision=prec).apply_lp_params(lp)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# the fields the native reader fills; it leaves the RHS/RANGES/BOUNDS set
+# names empty, in both packages
+_SECTION_NAMES = ("rhs_name", "ranges_name", "bounds_name")
+
+
+@pytest.mark.parametrize("key", sorted(TEXTS))
+def test_native_reader_equals_python_reader(tmp_path, key):
+    path = _write(tmp_path, key)
+    got = tmps.read_mps(path, engine="native")
+    want = tmps.read_mps(path, engine="python")
+    for name in _SECTION_NAMES:
+        setattr(got, name, getattr(want, name))
+    _assert_same(want, got)
+    # the default engine reads with the native reader
+    assert tmps.read_mps(path).rhs_name == ""
+
+
+def test_native_source_is_the_jax_packages():
+    from vanderbei_tpu import native as jnative
+    with open(jnative._SRC, "rb") as a, open(tnative.SOURCE, "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.dirname(tnative.library_path()) == tnative.BUILD_DIR
+
+
+def test_native_reader_refuses_missing_file():
+    with pytest.raises(ValueError):
+        tmps.read_mps("/nonexistent/file.mps", engine="native")
+
+
+def _build(mod):
+    """The same model through either package's LPBuilder: every row kind,
+    bounds, an integer column and quadratic terms."""
+    b = mod.LPBuilder(name="mix", maximize=True)
+    b.var("a", obj=1.0).var("b", lower=-2.0, upper=3.0, obj=2.0)
+    b.var("c", upper=5.0, obj=-1.0, integer=True).var("d", lower=-np.inf)
+    b.constraint("ge", {"a": 1.0, "b": 2.0}, lo=1.0)
+    b.constraint("le", {"b": 1.0, "c": -1.0, "d": 4.0}, hi=7.0)
+    b.constraint("eq", {"a": 1.0, "d": 1.0}, lo=2.0, hi=2.0)
+    b.constraint("rng", {"c": 3.0, "a": -1.0}, lo=-1.0, hi=6.0)
+    return b.quad("a", "a", 2.0).quad("b", "a", 0.5).quad("c", "c", 1.0).build()
+
+
+def test_builder_equal():
+    _assert_same(_build(jbuilder), _build(tbuilder))
+    with pytest.raises(ValueError):
+        tbuilder.LPBuilder().var("x").var("x")
+
+
+def test_solution_round_trip(tmp_path):
+    rng = np.random.default_rng(3)
+    for b_canon in (rng.normal(size=4), None):
+        sol = tlp.Solution(status=0, x=rng.normal(size=3),
+                           y=rng.normal(size=4), w=rng.normal(size=4),
+                           z=rng.normal(size=3), primal_obj=1.25,
+                           dual_obj=1.5, iterations=17, b_canon=b_canon)
+        path = str(tmp_path / "sol.npz")
+        tcheckpoint.save_solution(path, sol)
+        back = tcheckpoint.load_solution(path)
+        for f in ("status", "primal_obj", "dual_obj", "iterations"):
+            assert getattr(back, f) == getattr(sol, f), f
+        for f in ("x", "y", "w", "z"):
+            np.testing.assert_array_equal(getattr(back, f), getattr(sol, f))
+        assert (back.b_canon is None) == (b_canon is None)
+        # the JAX package reads it back the same way
+        from vanderbei_tpu.utils.checkpoint import load_solution
+        jback = load_solution(path)
+        assert jback.iterations == 17 and jback.primal_obj == 1.25

@@ -24,10 +24,17 @@ from tests.test_mps import row
 from vanderbei_tpu import cli as jax_cli
 from vanderbei_tpu.core import lp as jlp
 from vanderbei_tpu.core.builder import LPBuilder
+from vanderbei_tpu_torch import cli
 from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BARS = {"f64": (1, 1e-9), "mixed": (3, 1e-8)}
+
+# The tests run in several worker processes that share a few cores, and
+# every worker imports this module: with one intra-op thread each, torch's
+# thread pools do not contend (the port's tests run about five times
+# faster so).
+torch.set_num_threads(1)
 
 
 def _port_lp(lp):
@@ -40,13 +47,15 @@ def _jax_lp(lp):
                      for f in dataclasses.fields(jlp.LP)})
 
 
-def _compare(jax_lp, precision="f64", method="hsd", **cfg):
+def _compare(jax_lp, precision="f64", method="hsd", bars=None, **cfg):
+    """Solve in both packages and hold the port to `bars` (iterations,
+    relative objective), by default BARS of the precision."""
     want = vt.solve(jax_lp, method=method,
                     config=vt.SolverConfig(precision=precision, **cfg))
     got = vtt.solve(_port_lp(jax_lp), method=method,
                     config=vtt.SolverConfig(precision=precision, **cfg),
                     device="cpu")
-    d_it, rel = BARS[precision]
+    d_it, rel = bars or BARS["mixed" if precision == "mixed" else "f64"]
     assert got.status == want.status
     assert abs(got.iterations - want.iterations) <= d_it
     if want.status == 0:
@@ -177,7 +186,11 @@ def test_cli_out_equals_jax_cli(tmp_path, monkeypatch):
 def test_import_loads_no_jax():
     code = ("import sys, vanderbei_tpu_torch, vanderbei_tpu_torch.cli, "
             "vanderbei_tpu_torch.utils.checkpoint, "
-            "vanderbei_tpu_torch.utils.randlp; "
+            "vanderbei_tpu_torch.utils.randlp, "
+            "vanderbei_tpu_torch.models.intpt, "
+            "vanderbei_tpu_torch.models.simplex, "
+            "vanderbei_tpu_torch.ops.quad, vanderbei_tpu_torch.native, "
+            "vanderbei_tpu_torch.core.builder; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'vanderbei_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -193,8 +206,36 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Every method and precision of the JAX package is ported: only a
+    method neither package has is refused."""
     lp = _port_lp(_diet())
-    with pytest.raises(NotImplementedError):
-        vtt.solve(lp, config=vtt.SolverConfig(precision="dd"), device="cpu")
-    with pytest.raises(ValueError, match="unported"):
-        vtt.solve(lp, method="pd", device="cpu")
+    assert vtt.solve(lp, config=vtt.SolverConfig(precision="dd"),
+                     device="cpu").status == 0
+    with pytest.raises(ValueError, match="unknown method"):
+        vtt.solve(lp, method="revised", device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        vt.solve(_jax_lp(lp), method="revised")
+
+
+def test_solvers_equal():
+    assert set(vtt.SOLVERS) == set(vt.SOLVERS)
+    assert vtt.get_solver("pd") is vtt.SOLVERS["pd"]
+
+
+@pytest.mark.parametrize("method,m,n", [("intpt", 9, 40), ("pd", 40, 80),
+                                        ("twophase", 40, 80)])
+def test_cli_out_equals_jax_cli_by_method(tmp_path, monkeypatch, method,
+                                          m, n):
+    """intpt's LP has no equality rows (m < 10): stopping at a 1e-6 gap,
+    intpt leaves the duals of equality rows, some 1e4 in size on the 40 x
+    80 LP, determined only to about 7 % (x agrees to 1e-11), short of the
+    .out's five digits."""
+    monkeypatch.setattr(jax_cli, "enable_persistent_cache", lambda: None)
+    mps = tmp_path / "rand.mps"
+    vtt.write_lp(random_bounded_lp(m, n, seed=4), str(mps))
+    jax_out, port_out = tmp_path / "jax.out", tmp_path / "port.out"
+    assert jax_cli.main([str(mps), "--method", method, "--out", str(jax_out),
+                         "--verbose", "0"]) == 0
+    assert cli.main([str(mps), "--method", method, "--device", "cpu",
+                     "--out", str(port_out), "--verbose", "0"]) == 0
+    _same_out(jax_out.read_text(), port_out.read_text())

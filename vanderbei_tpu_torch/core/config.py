@@ -1,8 +1,6 @@
 """Solver configuration (a copy of vanderbei_tpu/core/config.py, so both
-packages read one set of knobs).  Fields read only by solvers or machinery
-not ported yet (intpt, the simplex methods, the TPU watchdog's xl_chunk_*
-budgets) are carried unused, and precision="dd" is refused by
-models/registry.solve.
+packages read one set of knobs).  The TPU watchdog's xl_chunk_* budgets
+are carried unused: the port keeps only the time_limit deadline.
 
 One dataclass replaces the reference's three config layers (MPS header
 keywords iolp.c:167-183, the generic param[] store iolp.c:270-277, and the

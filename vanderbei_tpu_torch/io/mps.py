@@ -88,16 +88,30 @@ def _newstate(line: str) -> int:
     raise ValueError(f"unrecognized section label: {line.strip()}")
 
 
-def read_mps(path_or_paths, lp: LP | None = None) -> LP:
+def read_mps(path_or_paths, lp: LP | None = None,
+             engine: str = "auto") -> LP:
     """Parse one or more MPS files into an LP (reference readlp iolp.c:145).
 
-    This is the pure-Python reader only (vanderbei_tpu's engine="python");
-    the native C++ reader is not part of this package yet.
+    engine: "native" uses the C++ reader (vanderbei_tpu_torch/native, built
+    with g++ at first use), "python" this implementation, "auto" prefers
+    native for single-file reads with default options and reads with
+    python where native cannot (vanderbei_tpu's semantics).  Both give the
+    same LP; this is a host parser, not a device path.
     """
     if isinstance(path_or_paths, (str,)):
         paths = [path_or_paths]
     else:
         paths = list(path_or_paths)
+
+    if engine in ("auto", "native") and lp is None and len(paths) == 1:
+        try:
+            from ..native import read_mps_native
+            return read_mps_native(paths[0])
+        except (OSError, RuntimeError, ValueError):
+            # no g++, a failed build or load, or a file the native parser
+            # refuses: "auto" reads it with python
+            if engine == "native":
+                raise
 
     if lp is None:
         lp = LP()

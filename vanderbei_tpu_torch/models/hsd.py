@@ -20,10 +20,12 @@ from __future__ import annotations
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.status import Status
 from ..ops.kkt import kkt_factor, kkt_solve, UbTail, tail_matvec, tail_rmatvec
+from ..ops.quad import dot2, matvec2
 
 DEFAULT_MAX_ITER = 200      # hsd.c:25
 DEFAULT_MAX_ITER_LS = 600   # hsdls.c:25
@@ -132,11 +134,16 @@ def make_step(A, b, c, *,
               trace: bool = False,
               f=0.0,
               factor_dtype=None,
+              compensated: bool = False,
               corrector: str = "mehrotra",
               ub: UbTail | None = None):
     """Build the single-iteration step function state -> state (one KKT
     factorization, the f/g solves, the ratio test or linesearch, the
-    update), as vanderbei_tpu.models.hsd.make_step."""
+    update), as vanderbei_tpu.models.hsd.make_step.
+
+    compensated=True is precision "dd": the residual products and the
+    inner products go through quad.matvec2 / quad.dot2 (twice the working
+    precision), and so do the KKT refinement residuals."""
     m, n = A.shape
     if ub is not None:
         m = m + ub.idx2.shape[0]     # y/w span the implicit tail rows too
@@ -146,24 +153,28 @@ def make_step(A, b, c, *,
     eps, step_factor, beta = knob(eps), knob(step_factor), knob(beta)
     gap_tol, feas_tol, f = knob(gap_tol), knob(feas_tol), knob(f)
     one = knob(1.0)
-    if ub is not None:
-        mv = lambda M, v: tail_matvec(M, ub, v)
-        mvT = lambda M, v: tail_rmatvec(M, ub, v)
+    if compensated:
+        base_mv, dot = matvec2, dot2
     else:
-        mv = lambda M, v: M @ v
-        mvT = lambda M, v: M.mT @ v
+        base_mv, dot = torch.matmul, torch.dot
+    if ub is not None:
+        mv = lambda M, v: tail_matvec(M, ub, v, base_mv)
+        mvT = lambda M, v: tail_rmatvec(M, ub, v, base_mv)
+    else:
+        mv = base_mv
+        mvT = lambda M, v: base_mv(M.mT, v)
 
     def body(s: HsdState) -> HsdState:
         x, z, y, w, phi, psi = s.x, s.z, s.y, s.w, s.phi, s.psi
 
-        mu = (z @ x + w @ y + phi * psi) / (n + m + 1)
+        mu = (dot(z, x) + dot(w, y) + phi * psi) / (n + m + 1)
         if long_step:
             delta = 2.0 * (1.0 - beta)                       # hsdls.c:113
         else:
             delta = torch.where(s.iter % 2 == 0, 0.0, one)   # hsd.c:138-142
 
-        primal_obj = c @ x
-        dual_obj = b @ y
+        primal_obj = dot(c, x)
+        dual_obj = dot(b, y)
 
         # infeasibilities (hsd.c:182-198), before the stop test
         rho = mv(A, x) - b * phi + w        # (m,) incl. implicit tail rows
@@ -175,11 +186,12 @@ def make_step(A, b, c, *,
         opt_test = phi > eps if long_step else phi > psi
         scale = 1.0 + torch.abs(primal_obj) / phi
         gap_rel = (dual_obj - primal_obj) / phi / scale
-        comp_rel = (z @ x + w @ y) / (phi * phi) / scale
-        pinf_rel = torch.sqrt(rho @ rho) / phi / (1.0 + torch.sqrt(b @ b))
-        dinf_rel = torch.sqrt(sigma @ sigma) / phi / (1.0 + torch.sqrt(c @ c))
-        perr = torch.abs(y @ rho) / (phi * phi) / scale
-        derr = torch.abs(x @ sigma) / (phi * phi) / scale
+        comp_rel = (dot(z, x) + dot(w, y)) / (phi * phi) / scale
+        pinf_rel = torch.sqrt(dot(rho, rho)) / phi / (1.0 + torch.sqrt(dot(b, b)))
+        dinf_rel = (torch.sqrt(dot(sigma, sigma)) / phi
+                    / (1.0 + torch.sqrt(dot(c, c))))
+        perr = torch.abs(dot(y, rho)) / (phi * phi) / scale
+        derr = torch.abs(dot(x, sigma)) / (phi * phi) / scale
         good = ((gap_rel <= gap_tol) & (comp_rel <= gap_tol)
                 & (pinf_rel <= feas_tol) & (dinf_rel <= feas_tol)
                 & (perr <= 10.0 * gap_tol) & (derr <= 10.0 * gap_tol))
@@ -213,15 +225,15 @@ def make_step(A, b, c, *,
                              ub=ub, reg0=s.reg)
             solve = lambda ry, rx: kkt_solve(
                 A, E, D, fac, ry, rx, epsdiag=epsdiag, refine_tol=refine_tol,
-                max_refine=max_refine, ub=ub)
+                max_refine=max_refine, compensated=compensated, ub=ub)
 
             def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
                 """Fold a (delta, second-order) Newton system through the
                 shared f/g combination (hsd.c:230-238)."""
-                dphi = ((c @ fx - b @ fy
+                dphi = ((dot(c, fx) - dot(b, fy)
                          + (-(1.0 - dlt) * (dual_obj - primal_obj + psi)
                             + psi - dlt * mu / phi + so_phi / phi))
-                        / (c @ gx - b @ gy - psi / phi))
+                        / (dot(c, gx) - dot(b, gy) - psi / phi))
                 dx = fx - gx * dphi
                 dy = fy - gy * dphi
                 dz = dlt * mu / x - z - D * dx - so_x / x
@@ -255,8 +267,8 @@ def make_step(A, b, c, *,
                            -dphi_a / phi, -dpsi_a / psi)
                 th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
                                    one)
-                mu_aff = ((z + th_a * dz_a) @ (x + th_a * dx_a)
-                          + (w + th_a * dw_a) @ (y + th_a * dy_a)
+                mu_aff = (dot(z + th_a * dz_a, x + th_a * dx_a)
+                          + dot(w + th_a * dw_a, y + th_a * dy_a)
                           + (phi + th_a * dphi_a) * (psi + th_a * dpsi_a)
                           ) / (n + m + 1)
                 sig = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
@@ -334,6 +346,7 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
               max_refine: int = 8,
               trace: bool = False,
               factor_dtype=None,
+              compensated: bool = False,
               corrector: str = "mehrotra",
               ub: UbTail | None = None,
               deadline: float | None = None):
@@ -349,7 +362,7 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
                      gap_tol=gap_tol, feas_tol=feas_tol,
                      long_step=long_step, max_refine=max_refine,
                      trace=trace, f=f, factor_dtype=factor_dtype,
-                     corrector=corrector, ub=ub)
+                     compensated=compensated, corrector=corrector, ub=ub)
     m, n = A.shape
     if ub is not None:
         m = m + ub.idx2.shape[0]
@@ -391,6 +404,7 @@ def solve_canon(A, b, c, f, *,
                 trace: bool = False,
                 factor_dtype=None,
                 pause_mu: float = 0.0,
+                compensated: bool = False,
                 corrector: str = "mehrotra",
                 ub: UbTail | None = None,
                 init: HsdState | None = None):
@@ -412,6 +426,66 @@ def solve_canon(A, b, c, f, *,
                        gap_tol=gap_tol, feas_tol=feas_tol,
                        pause_mu=pause_mu, long_step=long_step,
                        max_refine=max_refine, trace=trace,
-                       factor_dtype=factor_dtype, corrector=corrector, ub=ub)
+                       factor_dtype=factor_dtype, compensated=compensated,
+                       corrector=corrector, ub=ub)
     status, x, y, w, z, iters = finish_state(out, max_iter)
     return status, x, y, w, z, iters, out
+
+
+METRICS = ("mu", "primal_obj", "dual_obj", "primal_infeas", "dual_infeas")
+
+
+def solve_canon_metrics(A, b, c, f, *,
+                        max_iter: int = DEFAULT_MAX_ITER,
+                        eps: float = 1.0e-12,
+                        step_factor: float = 0.95,
+                        long_step: bool = False,
+                        beta: float = 0.80,
+                        epsdiag: float = 1.0e-14,
+                        refine_tol: float = 1.0e-10,
+                        max_refine: int = 8,
+                        factor_dtype=None,
+                        compensated: bool = False,
+                        corrector: str = "mehrotra",
+                        ub: UbTail | None = None,
+                        init: HsdState | None = None):
+    """solve_canon plus one metrics row per iteration (the structured
+    counterpart of the reference's trace, hsd.c:206-209), computed from
+    the state before the step as vanderbei_tpu's _hsd_scan_metrics does.
+    The loop stops at the decided status instead of scanning no-op
+    iterations to max_iter, so every row is a valid one.
+
+    Returns ((status, x, y, w, z, iterations, state), rows), rows a dict
+    of (iterations,) float64 numpy arrays keyed by METRICS.
+    """
+    if init is None:
+        init = init_state(A, extra_rows=0 if ub is None else ub.idx2.shape[0])
+    body = make_step(A, b, c, eps=eps, step_factor=step_factor, beta=beta,
+                     epsdiag=epsdiag, refine_tol=refine_tol,
+                     long_step=long_step, max_refine=max_refine, f=f,
+                     factor_dtype=factor_dtype, compensated=compensated,
+                     corrector=corrector, ub=ub)
+    m, n = A.shape
+    if ub is not None:
+        m = m + ub.idx2.shape[0]
+    rows = []
+    s = init
+    while bool(((s.status == _RUNNING) & (s.iter < max_iter)).item()):
+        if ub is None:
+            ax, aty = A @ s.x, A.mT @ s.y
+        else:
+            ax, aty = tail_matvec(A, ub, s.x), tail_rmatvec(A, ub, s.y)
+        rho = ax - b * s.phi + s.w
+        sigma = -aty + c * s.phi + s.z
+        rows.append(torch.stack([
+            _mu(s, n + m + 1),
+            (c @ s.x) / s.phi + f,
+            (b @ s.y) / s.phi + f,
+            torch.sqrt(rho @ rho) / s.phi,
+            torch.sqrt(sigma @ sigma) / s.phi]))
+        s = body(s)
+    table = (torch.stack(rows).to(torch.float64).cpu().numpy() if rows
+             else np.zeros((0, len(METRICS))))
+    status, x, y, w, z, iters = finish_state(s, max_iter)
+    return ((status, x, y, w, z, iters, s),
+            {k: table[:, i] for i, k in enumerate(METRICS)})

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .quad import matvec2
 from .syrk import scaled_syrk
 
 
@@ -49,16 +50,17 @@ def _w2(ub: UbTail, v: torch.Tensor) -> torch.Tensor:
     return ub.w2 if v.dim() == 1 else ub.w2[:, None]
 
 
-def tail_matvec(A1, ub: UbTail, x):
-    """[A1; S] @ x where S are the ub/padding tail rows; x is (n,) or (n, k)."""
-    return torch.cat([A1 @ x, _w2(ub, x) * x[ub.idx2]])
+def tail_matvec(A1, ub: UbTail, x, mv=torch.matmul):
+    """[A1; S] @ x where S are the ub/padding tail rows; x is (n,) or (n, k).
+    mv(M, v) forms the head product (quad.matvec2 in compensated mode)."""
+    return torch.cat([mv(A1, x), _w2(ub, x) * x[ub.idx2]])
 
 
-def tail_rmatvec(A1, ub: UbTail, y):
+def tail_rmatvec(A1, ub: UbTail, y, mv=torch.matmul):
     """[A1; S]' @ y.  index_add sums duplicate indices (padding rows all
     point at column 0 with weight 0)."""
     m1 = A1.shape[0]
-    return (A1.mT @ y[:m1]).index_add_(0, ub.idx2, _w2(ub, y) * y[m1:])
+    return mv(A1.mT, y[:m1]).index_add_(0, ub.idx2, _w2(ub, y) * y[m1:])
 
 
 class KKTFactor(NamedTuple):
@@ -196,29 +198,33 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
 
 def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
               epsdiag=1.0e-14, refine_tol=1.0e-10, max_refine: int = 8,
-              ub: UbTail | None = None):
+              compensated: bool = False, ub: UbTail | None = None):
     """Solve [[-E, A], [A', D+Q]] [dy; dx] = [rhs_y; rhs_x] with refinement.
 
     Residuals use the TRUE (unclamped) E, D while the factor used the
-    clamped ones (ldlt.c:389-398).  rhs may be vectors or (dim, k)."""
+    clamped ones (ldlt.c:389-398).  rhs may be vectors or (dim, k).
+    compensated=True forms the refinement residuals' products with
+    quad.matvec2 (twice the working precision, the QuadPrec analogue), so
+    refinement can go below the plain products' roundoff floor."""
     Ec = E.clamp_min(epsdiag)
     Dc = D.clamp_min(epsdiag)
     single = rhs_y.dim() == 1
     if single:
         rhs_y = rhs_y[:, None]
         rhs_x = rhs_x[:, None]
+    base_mv = matvec2 if compensated else torch.matmul
     if ub is not None:
-        mv = lambda M, v: tail_matvec(M, ub, v)
-        mvT = lambda M, v: tail_rmatvec(M, ub, v)
+        mv = lambda M, v: tail_matvec(M, ub, v, base_mv)
+        mvT = lambda M, v: tail_rmatvec(M, ub, v, base_mv)
     else:
-        mv = lambda M, v: M @ v
-        mvT = lambda M, v: M.mT @ v
+        mv = base_mv
+        mvT = lambda M, v: base_mv(M.mT, v)
 
     def residual(dy, dx):
         r1 = rhs_y + E[:, None] * dy - mv(A, dx)
         r2 = rhs_x - mvT(A, dy) - D[:, None] * dx
         if Q is not None:
-            r2 = r2 - Q @ dx
+            r2 = r2 - base_mv(Q, dx)
         return r1, r2
 
     def max_resid(dy, dx):

@@ -13,7 +13,8 @@ are compiled, so the build takes seconds.  The library's file name carries
 a hash of every source under csrc/ and of the nvcc flags, so an edit to
 any of them builds a new library and a stale one is never loaded.
 `launches` counts the kernel's launches, so a run can show that the solver
-went through it.
+went through it, and `route_launches` splits them by copy path and layout
+(keys such as "tma/transposed"); `reset_counts` zeroes both.
 """
 
 from __future__ import annotations
@@ -35,8 +36,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-ldl", "-Xptxas", "-v"]
 
 launches = 0          # kernel launches since the last reset
+route_launches = {}   # the same launches by f"{route(X)}/{layout(X)}"
 build_log = ""        # nvcc's output (ptxas register/spill report) of a build
 _lib = None
+
+
+def reset_counts() -> None:
+    global launches
+    launches = 0
+    route_launches.clear()
 
 
 def scaled_syrk_reference(X, s, e):
@@ -137,10 +145,12 @@ def scaled_syrk_cuda(X, s, e):
             X.data_ptr(), s.data_ptr(), e.data_ptr(), M.data_ptr(), B, m, n,
             X.stride(0), X.stride(1), X.stride(2), s.stride(0), e.stride(0),
             stream)
-        launches += 1
     if rc != 0:
         raise RuntimeError("scaled_syrk kernel launch failed: "
                            + lib.vt_cuda_error_string(rc).decode())
+    launches += 1
+    key = f"{route(X)}/{layout(X)}"
+    route_launches[key] = route_launches.get(key, 0) + 1
     return M if batched else M[0]
 
 
@@ -152,6 +162,13 @@ def route(X) -> str:
     B, m, n = X3.shape
     tma = _load().vt_scaled_syrk_route(X3.data_ptr(), B, m, n, *X3.stride())
     return "tma" if tma else "cp.async"
+
+
+def layout(X) -> str:
+    """"transposed" when X's rows are its contiguous dimension (the dual
+    form's A' view), else "k-contiguous": the kernel's two layouts."""
+    sxm, sxn = X.stride(-2), X.stride(-1)
+    return "k-contiguous" if (sxn == 1 or sxm != 1) else "transposed"
 
 
 def scaled_syrk(X, s, e):
