@@ -13,10 +13,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
    strided transposed view of the dual form, a batch of 3, a column scale
    spread over 1e-8..1e8, and the edges of both copy paths (ragged
    transposed, a column step, an unaligned base, a 7 x 5 X, a batch of
-   transposed views) and intpt's dual-form A' (4096, 6656); kernel and
-   plain times, and the kernel's TFLOP/s of lower-tile work, at (2560,
-   4096) (TMA copies), its transposed view (TMA), (1000, 1537) (cp.async
-   copies) and the dual-form A' (TMA).
+   transposed views), intpt's dual-form A' (4096, 6656) and the QP's
+   dual-form A' (1024, 2048); kernel and plain times, and the kernel's
+   TFLOP/s of lower-tile work, at (2560, 4096) (TMA copies), its
+   transposed view (TMA), (1000, 1537) (cp.async copies) and the
+   dual-form A' (TMA).
 4. solve: a seeded 2000 x 4000 bounded LP (200 equality rows, 2% dense),
    written to MPS and solved through the CLI on the card; it must be
    OPTIMAL within 1e-8 of scipy's HiGHS on the LP read back from the file,
@@ -30,8 +31,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
    QUADS and solved through the CLI with --method hsd on the card, which
    must route it to intpt and launch the kernel; the same file solved in
    process on the CPU (the plain versions) must agree: both OPTIMAL,
-   iterations within 3, objectives within 1e-8; the CPU point satisfies
-   the rows and bounds of the file to 1e-6 relative.
+   iterations within 3, objectives within 1e-8; the card's point (of an
+   in-process solve on the card) and the CPU's satisfy the rows and
+   bounds of the file to 1e-6 relative and agree to 1e-3 relative.
 7. dd: a seeded 500 x 1000 LP through the CLI with --precision dd
    --metrics: OPTIMAL within 1e-8 of HiGHS; the CSV finite, one row per
    iteration of its run (iter 0..k-1), mu falling by at least 1e8.
@@ -39,8 +41,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    --method twophase: each OPTIMAL within 1e-8 of HiGHS; pivots, seconds.
 9. native: the smoke MPS read with the native reader (built by g++ here)
    equals the Python reader's LP, array for array.
-10. the kernels' JSON line (launches split by path: hsd, intpt, qp), the
-   card line, then {"ok": true, "device": {...}} last.
+10. every (shape, layout) the solves of phases 4-6 handed the kernel is
+   one that phase 3 held against the plain version, or the run fails;
+   then the kernels' JSON line (launches split by path: hsd, intpt, qp),
+   the card line, and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ RTOL, ATOL = 2e-5, 2e-4
 OBJ_RTOL = 1e-8
 INTPT_RTOL = 1e-6          # intpt stops at ipm_eps = 1e-6 (core/config.py)
 FEAS_RTOL = 1e-6
+X_RTOL = 1e-3              # the QP's card and CPU points (see check_qp)
 
 
 def fail(msg: str) -> None:
@@ -78,7 +83,7 @@ def card_line() -> str:
 
 def check_kernel(syrk, torch):
     """Phase 3: returns (max |kernel - plain| at the head shape, kernel ms,
-    plain ms)."""
+    plain ms, the set of (shape, layout) held against the plain version)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(shape, spread=False, transposed=False, step=1, offset=0):
@@ -110,10 +115,14 @@ def check_kernel(syrk, torch):
              ("batch-transposed", (2, 300, 200), {"transposed": True}),
              # intpt's dual form on the ranged smoke LP (phase 5): A' of
              # the padded 6656 x 4096 canonical A
-             ("dual-form", (4096, 6656), {"transposed": True})]
+             ("dual-form", (4096, 6656), {"transposed": True}),
+             # the QP's dual form (phase 6): A' of the padded 2048 x 1024 A
+             ("qp-dual-form", (1024, 2048), {"transposed": True})]
     head_err = None
+    checked = set()
     for label, shape, kw in cases:
         X, s, e = inputs(shape, **kw)
+        checked.add((tuple(X.shape), syrk.layout(X)))
         Mk = syrk.scaled_syrk_cuda(X, s, e)
         torch.cuda.synchronize()
         Mp = syrk.scaled_syrk_reference(X, s, e)
@@ -172,7 +181,21 @@ def check_kernel(syrk, torch):
               f"({p1:.4f}, {p2:.4f})  [{rate:.1f} TFLOP/s of lower-tile "
               f"work]", flush=True)
     t_k, t_p = times["head"]
-    return head_err, t_k, t_p
+    return head_err, t_k, t_p, checked
+
+
+def record_kernel_shapes(syrk):
+    """Wrap the kernel's wrapper so that every (shape, layout) a solve
+    hands it is recorded; returns the set it fills."""
+    seen = set()
+    launch = syrk.scaled_syrk_cuda
+
+    def recorded(X, s, e):
+        seen.add((tuple(X.shape), syrk.layout(X)))
+        return launch(X, s, e)
+
+    syrk.scaled_syrk_cuda = recorded
+    return seen
 
 
 def lower_tile_flops(m, n, tile=128):
@@ -232,7 +255,7 @@ def solve_end_to_end(syrk, torch, m=2000, n=4000, device="cuda"):
     with contextlib.redirect_stdout(buf):
         rc = cli.main([mps, "--device", device, "--out", out])
     t_cli = time.perf_counter() - t0
-    launches = syrk.launches
+    launches = syrk.launch_count()
     text = buf.getvalue()
     if rc != 0:
         fail(f"cli returned {rc}")
@@ -308,7 +331,7 @@ def check_intpt(syrk, mps, device="cuda"):
     syrk.reset_counts()
     text, secs, status, obj, iters, stages = run_cli(
         [ranged, "--method", "intpt", "--device", device, "--no-out"])
-    launches, routes = syrk.launches, dict(syrk.route_launches)
+    launches, routes = syrk.launch_count(), dict(syrk.route_launches)
     if status != "optimal solution":
         fail(f"intpt not optimal:\n{text}")
     if not any(p == "f32" and k > 0 for p, k, _ in stages):
@@ -344,7 +367,17 @@ def max_violation(lp, x):
 
 
 def check_qp(syrk, work, device="cuda", m=500, n=1000):
-    """Phase 6: returns the kernel's launch count in the card's solve."""
+    """Phase 6: returns the kernel's launch count in the card's CLI solve.
+
+    The CLI prints no point, so the card's x comes from the same solve run
+    in process after it.  Stopping at intpt's 1e-6 gap fixes x only to
+    about 1e-4 relative (|dx| / (1 + |x|)): on the CPU, mixed solves of
+    this file with 1 to 8 torch threads part by up to 6.5e-6 and from the
+    f64 solve by 5.7e-5; before its MPS round trip the QP's mixed solves
+    part by 1.0e-4, each up to 4.6e-4 from a solve to a 1e-10 gap.  Two
+    points within 5e-4 of the optimum lie within X_RTOL = 1e-3 of each
+    other."""
+    import numpy as np
     import vanderbei_tpu_torch as vtt
     from vanderbei_tpu_torch.utils.randlp import random_bounded_qp
     mps = os.path.join(work, f"randq{m}.mps")
@@ -353,7 +386,7 @@ def check_qp(syrk, work, device="cuda", m=500, n=1000):
     syrk.reset_counts()
     text, secs, status, obj, iters, stages = run_cli(
         [mps, "--method", "hsd", "--device", device, "--no-out"])
-    launches = syrk.launches
+    launches = syrk.launch_count()
     route_line = "QUADS present: routing method 'hsd' -> 'intpt' (QP-capable)"
     if route_line not in text.splitlines():
         fail(f"the QP was not routed to intpt:\n{text}")
@@ -361,25 +394,34 @@ def check_qp(syrk, work, device="cuda", m=500, n=1000):
         fail(f"QP not optimal on {device}:\n{text}")
     if launches <= 0:
         fail("the QP solve launched the scaled_syrk kernel 0 times")
+    card = vtt.solve(lp, method="hsd", device=device)
     t0 = time.perf_counter()
     cpu = vtt.solve(lp, method="hsd", device="cpu")
     t_cpu = time.perf_counter() - t0
     rel = abs(obj - cpu.primal_obj) / max(1.0, abs(cpu.primal_obj))
-    viol = max_violation(lp, cpu.x)
+    viol_card, viol_cpu = max_violation(lp, card.x), max_violation(lp, cpu.x)
+    dx = float(np.max(np.abs(card.x - cpu.x) / (1.0 + np.abs(cpu.x))))
     print(f"qp {m}x{n} (QUADS, routed to intpt) on {device}: OPTIMAL obj "
           f"{obj!r}, {iters} iterations [{stage_text(stages)}], kernel "
           f"launches {launches}, cli {secs:.2f} s; cpu (plain versions): "
           f"status {cpu.status} obj {cpu.primal_obj!r}, {cpu.iterations} "
-          f"iterations, {t_cpu:.2f} s; rel {rel:.3e}; cpu point's max "
-          f"row/bound violation {viol:.3e}", flush=True)
+          f"iterations, {t_cpu:.2f} s; rel {rel:.3e}; max row/bound "
+          f"violation: card's point {viol_card:.3e}, cpu's {viol_cpu:.3e}; "
+          f"max |x_card - x_cpu| / (1 + |x_cpu|) {dx:.3e}", flush=True)
+    if card.status != 0:
+        fail(f"the in-process QP solve on {device} ended with status "
+             f"{card.status}")
     if cpu.status != 0:
         fail(f"the CPU QP solve ended with status {cpu.status}")
     if abs(iters - cpu.iterations) > 3:
         fail(f"QP iterations {iters} on {device} vs {cpu.iterations} on cpu")
     if not rel <= OBJ_RTOL:
         fail(f"QP objective {obj!r} is {rel:.3e} from the CPU's")
-    if not viol <= FEAS_RTOL:
-        fail(f"the QP's primal point violates the file by {viol:.3e}")
+    if not max(viol_card, viol_cpu) <= FEAS_RTOL:
+        fail(f"a QP primal point violates the file by "
+             f"{max(viol_card, viol_cpu):.3e}")
+    if not dx <= X_RTOL:
+        fail(f"the card's and the CPU's QP points part by {dx:.3e}")
     return launches
 
 
@@ -493,12 +535,19 @@ def main() -> int:
     if hgmma == 0:
         fail("the built kernel has no wgmma (HGMMA) instruction")
 
-    err, t_k, t_p = check_kernel(syrk, torch)
+    err, t_k, t_p, checked = check_kernel(syrk, torch)
+    seen = record_kernel_shapes(syrk)
     by_path = {}
     by_path["hsd"], _, mps = solve_end_to_end(syrk, torch)
     by_path["intpt"] = check_intpt(syrk, mps)
     work = os.path.dirname(mps)
     by_path["qp"] = check_qp(syrk, work)
+    unchecked = seen - checked
+    print(f"kernel shapes of the solves: {sorted(seen)}; each held against "
+          f"the plain version in phase 3: {not unchecked}", flush=True)
+    if unchecked:
+        fail(f"the solves gave the kernel shapes phase 3 did not check: "
+             f"{sorted(unchecked)}")
     check_dd_metrics(work)
     check_simplex(work)
     check_native(mps)

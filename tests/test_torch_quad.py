@@ -32,6 +32,9 @@ from vanderbei_tpu_torch import cli as port_cli
 from vanderbei_tpu_torch.ops import quad as tq
 from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 
+# one intra-op thread per test process: the xdist workers share a few cores
+torch.set_num_threads(1)
+
 DTYPES = [(np.float32, torch.float32), (np.float64, torch.float64)]
 
 

@@ -25,6 +25,9 @@ from vanderbei_tpu_torch.core.canonicalize import canonicalize
 from vanderbei_tpu_torch.models import simplex as tsimplex
 from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 
+# one intra-op thread per test process: the xdist workers share a few cores
+torch.set_num_threads(1)
+
 LPS = {
     "optimal60": lambda: _jax_lp(random_bounded_lp(60, 120, seed=0)),
     "optimal100": lambda: _jax_lp(random_bounded_lp(100, 200, seed=1)),

@@ -30,10 +30,10 @@ from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BARS = {"f64": (1, 1e-9), "mixed": (3, 1e-8)}
 
-# The tests run in several worker processes that share a few cores, and
-# every worker imports this module: with one intra-op thread each, torch's
-# thread pools do not contend (the port's tests run about five times
-# faster so).
+# The tests run in several worker processes that share a few cores: with
+# one intra-op thread each, torch's thread pools do not contend (the port's
+# tests run about five times faster so).  Each module that runs whole
+# solves sets this itself.
 torch.set_num_threads(1)
 
 

@@ -349,10 +349,12 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
               compensated: bool = False,
               corrector: str = "mehrotra",
               ub: UbTail | None = None,
-              deadline: float | None = None):
+              deadline: float | None = None,
+              on_iter=None):
     """Run from `init` until the status is decided, max_iter is reached,
     mu falls to `pause_mu` (a stage boundary; 0.0 = run to convergence) or
     the time.monotonic() `deadline` passes (checked after each iteration).
+    on_iter(state), if given, sees the state before each step.
 
     Returns (state, paused): the state NOT de-homogenized, and whether the
     loop stopped because mu reached pause_mu with the solve still running.
@@ -372,6 +374,8 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
         live = (state.status == _RUNNING) & (state.iter < max_iter)
         if not bool((live & (_mu(state, n + m + 1) > pause)).item()):
             break
+        if on_iter is not None:
+            on_iter(state)
         state = body(state)
         if deadline is not None and time.monotonic() > deadline:
             break
@@ -407,13 +411,15 @@ def solve_canon(A, b, c, f, *,
                 compensated: bool = False,
                 corrector: str = "mehrotra",
                 ub: UbTail | None = None,
-                init: HsdState | None = None):
+                init: HsdState | None = None,
+                on_iter=None):
     """Solve max c'x, Ax <= b, x >= 0 via the HSD embedding.
 
     ub: implicit singleton tail rows (A holds only the head rows; b spans
     head + tail).  factor_dtype: None = A's dtype, torch.float32 = f32
     factor with data-precision refinement.  pause_mu > 0 pauses once
     mu <= pause_mu (status stays RUNNING); resume with `init=`.
+    on_iter(state) sees the state before each step.
 
     Returns (status, x, y, w, z, iterations, state); x, y, w, z
     de-homogenized.
@@ -427,7 +433,7 @@ def solve_canon(A, b, c, f, *,
                        pause_mu=pause_mu, long_step=long_step,
                        max_refine=max_refine, trace=trace,
                        factor_dtype=factor_dtype, compensated=compensated,
-                       corrector=corrector, ub=ub)
+                       corrector=corrector, ub=ub, on_iter=on_iter)
     status, x, y, w, z, iters = finish_state(out, max_iter)
     return status, x, y, w, z, iters, out
 
@@ -435,42 +441,20 @@ def solve_canon(A, b, c, f, *,
 METRICS = ("mu", "primal_obj", "dual_obj", "primal_infeas", "dual_infeas")
 
 
-def solve_canon_metrics(A, b, c, f, *,
-                        max_iter: int = DEFAULT_MAX_ITER,
-                        eps: float = 1.0e-12,
-                        step_factor: float = 0.95,
-                        long_step: bool = False,
-                        beta: float = 0.80,
-                        epsdiag: float = 1.0e-14,
-                        refine_tol: float = 1.0e-10,
-                        max_refine: int = 8,
-                        factor_dtype=None,
-                        compensated: bool = False,
-                        corrector: str = "mehrotra",
-                        ub: UbTail | None = None,
-                        init: HsdState | None = None):
-    """solve_canon plus one metrics row per iteration (the structured
-    counterpart of the reference's trace, hsd.c:206-209), computed from
-    the state before the step as vanderbei_tpu's _hsd_scan_metrics does.
-    The loop stops at the decided status instead of scanning no-op
-    iterations to max_iter, so every row is a valid one.
+def solve_canon_metrics(A, b, c, f, *, ub: UbTail | None = None, **kw):
+    """solve_canon (same keywords) plus one metrics row per iteration (the
+    structured counterpart of the reference's trace, hsd.c:206-209),
+    computed from the state before the step as vanderbei_tpu's
+    _hsd_scan_metrics does.  The loop stops at the decided status instead
+    of scanning no-op iterations to max_iter, so every row is a valid one.
 
     Returns ((status, x, y, w, z, iterations, state), rows), rows a dict
     of (iterations,) float64 numpy arrays keyed by METRICS.
     """
-    if init is None:
-        init = init_state(A, extra_rows=0 if ub is None else ub.idx2.shape[0])
-    body = make_step(A, b, c, eps=eps, step_factor=step_factor, beta=beta,
-                     epsdiag=epsdiag, refine_tol=refine_tol,
-                     long_step=long_step, max_refine=max_refine, f=f,
-                     factor_dtype=factor_dtype, compensated=compensated,
-                     corrector=corrector, ub=ub)
-    m, n = A.shape
-    if ub is not None:
-        m = m + ub.idx2.shape[0]
+    n_total = sum(A.shape) + 1 + (0 if ub is None else ub.idx2.shape[0])
     rows = []
-    s = init
-    while bool(((s.status == _RUNNING) & (s.iter < max_iter)).item()):
+
+    def record(s: HsdState):
         if ub is None:
             ax, aty = A @ s.x, A.mT @ s.y
         else:
@@ -478,14 +462,13 @@ def solve_canon_metrics(A, b, c, f, *,
         rho = ax - b * s.phi + s.w
         sigma = -aty + c * s.phi + s.z
         rows.append(torch.stack([
-            _mu(s, n + m + 1),
+            _mu(s, n_total),
             (c @ s.x) / s.phi + f,
             (b @ s.y) / s.phi + f,
             torch.sqrt(rho @ rho) / s.phi,
             torch.sqrt(sigma @ sigma) / s.phi]))
-        s = body(s)
+
+    out = solve_canon(A, b, c, f, ub=ub, on_iter=record, **kw)
     table = (torch.stack(rows).to(torch.float64).cpu().numpy() if rows
              else np.zeros((0, len(METRICS))))
-    status, x, y, w, z, iters = finish_state(s, max_iter)
-    return ((status, x, y, w, z, iters, s),
-            {k: table[:, i] for i, k in enumerate(METRICS)})
+    return out, {k: table[:, i] for i, k in enumerate(METRICS)}

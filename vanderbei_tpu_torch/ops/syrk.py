@@ -12,9 +12,9 @@ plain C interface under `_build/` and bound with ctypes; no PyTorch headers
 are compiled, so the build takes seconds.  The library's file name carries
 a hash of every source under csrc/ and of the nvcc flags, so an edit to
 any of them builds a new library and a stale one is never loaded.
-`launches` counts the kernel's launches, so a run can show that the solver
-went through it, and `route_launches` splits them by copy path and layout
-(keys such as "tma/transposed"); `reset_counts` zeroes both.
+`route_launches` counts the kernel's launches by copy path and layout
+(keys such as "tma/transposed"), so a run can show that the solver went
+through it; `launch_count()` is their total and `reset_counts` zeroes them.
 """
 
 from __future__ import annotations
@@ -35,16 +35,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "static",
               "-ldl", "-Xptxas", "-v"]
 
-launches = 0          # kernel launches since the last reset
-route_launches = {}   # the same launches by f"{route(X)}/{layout(X)}"
+route_launches = {}   # launches since the last reset, by route/layout
 build_log = ""        # nvcc's output (ptxas register/spill report) of a build
 _lib = None
 
 
 def reset_counts() -> None:
-    global launches
-    launches = 0
     route_launches.clear()
+
+
+def launch_count() -> int:
+    """The kernel's launches since the last reset."""
+    return sum(route_launches.values())
 
 
 def scaled_syrk_reference(X, s, e):
@@ -116,7 +118,6 @@ def scaled_syrk_cuda(X, s, e):
     """Launch the Hopper kernel: X (m, n) or (B, m, n) f32 on a CUDA device,
     any non-negative strides; s (…, n) and e (…, m) f32 with unit stride
     along their last dimension.  Returns a new contiguous f32 M."""
-    global launches
     batched = X.dim() == 3
     if not batched:
         if X.dim() != 2:
@@ -148,7 +149,6 @@ def scaled_syrk_cuda(X, s, e):
     if rc != 0:
         raise RuntimeError("scaled_syrk kernel launch failed: "
                            + lib.vt_cuda_error_string(rc).decode())
-    launches += 1
     key = f"{route(X)}/{layout(X)}"
     route_launches[key] = route_launches.get(key, 0) + 1
     return M if batched else M[0]
