@@ -13,11 +13,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
    strided transposed view of the dual form, a batch of 3, a column scale
    spread over 1e-8..1e8, and the edges of both copy paths (ragged
    transposed, a column step, an unaligned base, a 7 x 5 X, a batch of
-   transposed views), intpt's dual-form A' (4096, 6656) and the QP's
-   dual-form A' (1024, 2048); kernel and plain times, and the kernel's
-   TFLOP/s of lower-tile work, at (2560, 4096) (TMA copies), its
-   transposed view (TMA), (1000, 1537) (cp.async copies) and the
-   dual-form A' (TMA).
+   transposed views), intpt's dual-form A' (4096, 6656), the QP's
+   dual-form A' (1024, 2048) and the two batched solves' launches, the
+   hsd class (16, 1024, 1536) and intpt's transposed class A'
+   (8, 1024, 1536); kernel and plain times, the kernel's TFLOP/s of
+   lower-tile work and its bound (see bound()), at (2560, 4096) (TMA
+   copies), its transposed view (TMA), (1000, 1537) (cp.async copies),
+   the dual-form A' of intpt and of the QP, and the two batched classes
+   (all TMA).
 4. solve: a seeded 2000 x 4000 bounded LP (200 equality rows, 2% dense),
    written to MPS and solved through the CLI on the card; it must be
    OPTIMAL within 1e-8 of scipy's HiGHS on the LP read back from the file,
@@ -41,10 +44,25 @@ Phases, one line each; any failure exits non-zero and prints no result:
    --method twophase: each OPTIMAL within 1e-8 of HiGHS; pivots, seconds.
 9. native: the smoke MPS read with the native reader (built by g++ here)
    equals the Python reader's LP, array for array.
-10. every (shape, layout) the solves of phases 4-6 handed the kernel is
-   one that phase 3 held against the plain version, or the run fails;
-   then the kernels' JSON line (launches split by path: hsd, intpt, qp),
-   the card line, and {"ok": true, "device": {...}} last.
+10. batch-hsd: 16 seeded bounded LPs (560 + 4j) x (1100 + 9j), j = 0..15,
+   written to MPS and read back, grouped as the batched corpus sweep
+   groups them (granularity 512, the UbTail structure) into ONE class
+   ("s", 1024, 1536, 1536), solved by parallel.batch.solve_batch_hsd
+   (mixed) on the card: every lane OPTIMAL from the batched solve itself
+   and within 1e-8 of HiGHS, one kernel launch per f32 iteration at
+   (16, 1024, 1536).
+11. batch-intpt: the ranged twins (as phase 5 builds them) of 8 seeded
+   LPs (400 + 10j) x (800 + 20j), one dense class (1536, 1024) through
+   solve_batch_intpt: every lane OPTIMAL within 1e-6 of HiGHS, the kernel
+   on the transposed batched view A' (8, 1024, 1536).
+12. batch-pd: 4 seeded LPs (300 + 10j) x (600 + 20j) through
+   solve_batch_pd: every lane OPTIMAL within 1e-8 of HiGHS; pivots per
+   lane and pivots/s.
+13. every (shape, layout) the solves of phases 4-6 and 10-11 handed the
+   kernel is one that phase 3 held against the plain version, or the run
+   fails; then the kernels' JSON line (launches split by path: hsd,
+   intpt, qp, batch-hsd, batch-intpt), the card line, and
+   {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -63,6 +81,11 @@ import time
 # the TPU kernel, applied at its shapes, where n <= 1024
 BOUND = 1e-4
 RTOL, ATOL = 2e-5, 2e-4
+# the card's peaks at 700 W (NVIDIA's H100 SXM data sheet): HBM3 at 3.35
+# TB/s; f32-accurate products by 3xTF32 at a third of the dense TF32 rate
+# (495 TFLOP/s), above the 67 TFLOP/s of f32 FFMA outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_3XTF32_FLOPS = 495e12 / 3
 OBJ_RTOL = 1e-8
 INTPT_RTOL = 1e-6          # intpt stops at ipm_eps = 1e-6 (core/config.py)
 FEAS_RTOL = 1e-6
@@ -117,7 +140,11 @@ def check_kernel(syrk, torch):
              # the padded 6656 x 4096 canonical A
              ("dual-form", (4096, 6656), {"transposed": True}),
              # the QP's dual form (phase 6): A' of the padded 2048 x 1024 A
-             ("qp-dual-form", (1024, 2048), {"transposed": True})]
+             ("qp-dual-form", (1024, 2048), {"transposed": True}),
+             # the batched solves (phases 10, 11): the hsd class's UbTail
+             # heads and the intpt class's dual-form A'
+             ("batch-hsd", (16, 1024, 1536), {}),
+             ("batch-intpt", (8, 1024, 1536), {"transposed": True})]
     head_err = None
     checked = set()
     for label, shape, kw in cases:
@@ -166,7 +193,10 @@ def check_kernel(syrk, torch):
             ("head", (2560, 4096), {}, "tma"),
             ("transposed", (2560, 4096), {"transposed": True}, "tma"),
             ("ragged", (1000, 1537), {}, "cp.async"),
-            ("dual-form", (4096, 6656), {"transposed": True}, "tma")):
+            ("dual-form", (4096, 6656), {"transposed": True}, "tma"),
+            ("qp-dual-form", (1024, 2048), {"transposed": True}, "tma"),
+            ("batch-hsd", (16, 1024, 1536), {}, "tma"),
+            ("batch-intpt", (8, 1024, 1536), {"transposed": True}, "tma")):
         X, s, e = inputs(shape, **kw)
         if syrk.route(X) != want:
             fail(f"{label} {tuple(X.shape)} took {syrk.route(X)}, not {want}")
@@ -174,14 +204,31 @@ def check_kernel(syrk, torch):
         kern = lambda: syrk.scaled_syrk_cuda(X, s, e)
         p1, k1, k2, p2 = ms(plain), ms(kern), ms(kern), ms(plain)
         t_k, t_p = (k1 + k2) / 2, (p1 + p2) / 2
-        times[label] = (t_k, t_p)
-        rate = lower_tile_flops(*shape) / t_k / 1e9
+        b_ms, b_by = bound(shape)
+        times[label] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                            bound_by=b_by)
+        *lead, m, n = shape
+        rate = lower_tile_flops(m, n) * (lead[0] if lead else 1) / t_k / 1e9
         print(f"kernel time {label} {tuple(X.shape)} [{want}]: kernel "
-              f"{t_k:.4f} ms ({k1:.4f}, {k2:.4f})  plain torch {t_p:.4f} ms "
-              f"({p1:.4f}, {p2:.4f})  [{rate:.1f} TFLOP/s of lower-tile "
-              f"work]", flush=True)
-    t_k, t_p = times["head"]
-    return head_err, t_k, t_p, checked
+              f"{t_k:.4f} ms ({k1:.4f}, {k2:.4f})  plain torch (cuBLAS) "
+              f"{t_p:.4f} ms ({p1:.4f}, {p2:.4f})  [{rate:.1f} TFLOP/s of "
+              f"lower-tile work; bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / t_k:.1f} % of it]", flush=True)
+    return head_err, times, checked
+
+
+def bound(shape):
+    """(least ms, "bytes" or "operations") of M = X diag(s) X' + diag(e)
+    for X of `shape`: the exact lower triangle's m(m+1)/2 * n multiply-adds
+    at the 3xTF32 rate against X, s, e read once and M written once at the
+    HBM rate."""
+    *lead, m, n = shape
+    B = lead[0] if lead else 1
+    flops = B * m * (m + 1) / 2 * n * 2
+    nbytes = B * (m * n + n + m + m * m) * 4
+    t_ops, t_bytes = flops / F32_3XTF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def record_kernel_shapes(syrk):
@@ -425,6 +472,116 @@ def check_qp(syrk, work, device="cuda", m=500, n=1000):
     return launches
 
 
+def lane_objective(canon, c, x):
+    """One lane's objective in its LP's own sense, as evaluate.py forms
+    it from the canonical c and x."""
+    n = canon.n
+    sign = 1.0 if canon.maximize else -1.0
+    return sign * (canon.obj_scale * float(c[:n] @ x[:n]) + canon.f)
+
+
+def seeded_lps(work, tag, dims, ranged=False):
+    """The seeded random_bounded_lp of each (m, n, seed), written to MPS
+    and read back; ranged widens each equality row to a range of width 1
+    (phase 5's twin)."""
+    import numpy as np
+    from vanderbei_tpu_torch import read_mps, write_lp
+    from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
+    lps = []
+    for j, (m, n, seed) in enumerate(dims):
+        lp = random_bounded_lp(m, n, density=0.02, seed=seed)
+        if ranged:
+            lp.r = np.where(lp.r == 0.0, 1.0, lp.r)
+        mps = os.path.join(work, f"{tag}{j}.mps")
+        write_lp(lp, mps)
+        lps.append(read_mps(mps))
+    return lps
+
+
+def check_batch(syrk, torch, card, work, method, dims, granularity=512,
+                want_key=None, rtol=OBJ_RTOL, ranged=False, device="cuda"):
+    """Phases 10-12: one size class of seeded LPs through the batched
+    solver of `method`, as evaluate.run_sweep_batched groups and stacks
+    them; every lane must be OPTIMAL from the batched solve itself (no
+    per-problem rescue) and within rtol of HiGHS on its read-back LP.
+    Returns the kernel's launch count in the solve."""
+    import numpy as np
+    from vanderbei_tpu_torch import SolverConfig
+    from vanderbei_tpu_torch.parallel import batch as pb
+    cfg = SolverConfig()
+    lps = seeded_lps(work, f"b{method}", dims, ranged)
+    classes, aborted = pb.group_by_class(
+        lps, granularity=granularity, use_ub_structure=(method == "hsd"),
+        scale=cfg.scale, free_vars=cfg.free_vars)
+    if aborted or len(classes) != 1:
+        fail(f"batch-{method}: {len(classes)} classes, aborted {aborted}")
+    (key, entries), = classes.items()
+    if want_key is not None and key != want_key:
+        fail(f"batch-{method}: class {key}, not {want_key}")
+    if key[0] == "s":
+        A, b, c, ub = pb.stack_class_structured(entries, *key[1:])
+    else:
+        A, b, c = pb.stack_class(entries, *key)
+        ub = None
+    t0 = time.perf_counter()
+    refs = [highs_objective(lp) for lp in lps]
+    t_ref = time.perf_counter() - t0
+    stages = []
+    syrk.reset_counts()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if method == "hsd":
+        out = pb.solve_batch_hsd(A, b, c, ub=ub, corrector=cfg.hsd_corrector,
+                                 device=device, stages=stages)
+    elif method == "intpt":
+        out = pb.solve_batch_intpt(
+            A, b, c, max_iter=cfg.max_iter or 200, eps=cfg.ipm_eps,
+            gap_floor=1.0e-2 if cfg.scale != "none" else 1.0,
+            div_detect=cfg.div_detect, device=device, stages=stages)
+    else:
+        out = pb.solve_batch_pd(A, b, c, max_iter=cfg.max_iter or 20_000,
+                                refresh_every=cfg.refresh_every,
+                                seed=cfg.seed, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, routes = syrk.launch_count(), dict(syrk.route_launches)
+    st, x, iters = (t.cpu().numpy() for t in (out[0], out[1], out[5]))
+    objs = [lane_objective(canon, c[j], x[j])
+            for j, (_, canon) in enumerate(entries)]
+    rels = [abs(o - refs[idx]) / max(1.0, abs(refs[idx]))
+            for o, (idx, _) in zip(objs, entries)]
+    B = len(entries)
+    stage_txt = "; ".join(
+        f"{s['precision']} iterations max {int(s['iterations'].max())} sum "
+        f"{int(s['iterations'].sum())}, {s['seconds']:.3f} s"
+        for s in stages) or (f"pivots per lane {iters.tolist()}, "
+                             f"{iters.sum() / secs:.0f} lane pivots/s, "
+                             f"{iters.max() / secs:.0f} pivots/s of the "
+                             f"batch")
+    print(f"batch-{method} on {device} ({card}): class {key}, {B} lanes, "
+          f"A {tuple(A.shape)}; statuses {st.tolist()}; {stage_txt}; wall "
+          f"{secs:.3f} s, {B / secs:.2f} lanes/s; max rel vs HiGHS "
+          f"{max(rels):.3e}; kernel launches {launches} {routes}; HiGHS "
+          f"{t_ref:.2f} s", flush=True)
+    if not np.all(st == 0):
+        fail(f"batch-{method}: lanes not OPTIMAL: {st.tolist()}")
+    if not max(rels) <= rtol:
+        fail(f"batch-{method}: objectives {max(rels):.3e} from HiGHS")
+    if method in ("hsd", "intpt"):
+        f32 = [s for s in stages if s["precision"] == "f32"]
+        if not f32 or int(f32[0]["iterations"].max()) <= 0:
+            fail(f"batch-{method}: no f32 stage ran")
+        if device == "cuda" and launches != int(f32[0]["iterations"].max()):
+            fail(f"batch-{method}: {launches} kernel launches for "
+                 f"{int(f32[0]['iterations'].max())} f32 iterations")
+        layout = "k-contiguous" if method == "hsd" else "transposed"
+        if any(not k.endswith("/" + layout) for k in routes):
+            fail(f"batch-{method}: kernel off the {layout} layout: {routes}")
+    return launches
+
+
 def check_dd_metrics(work, device="cuda", m=500, n=1000):
     """Phase 7."""
     import numpy as np
@@ -535,13 +692,24 @@ def main() -> int:
     if hgmma == 0:
         fail("the built kernel has no wgmma (HGMMA) instruction")
 
-    err, t_k, t_p, checked = check_kernel(syrk, torch)
+    err, times, checked = check_kernel(syrk, torch)
     seen = record_kernel_shapes(syrk)
     by_path = {}
     by_path["hsd"], _, mps = solve_end_to_end(syrk, torch)
     by_path["intpt"] = check_intpt(syrk, mps)
     work = os.path.dirname(mps)
     by_path["qp"] = check_qp(syrk, work)
+    by_path["batch-hsd"] = check_batch(
+        syrk, torch, card, work, "hsd",
+        [(560 + 4 * j, 1100 + 9 * j, j) for j in range(16)],
+        want_key=("s", 1024, 1536, 1536))
+    by_path["batch-intpt"] = check_batch(
+        syrk, torch, card, work, "intpt",
+        [(400 + 10 * j, 800 + 20 * j, j) for j in range(8)],
+        want_key=(1536, 1024), rtol=INTPT_RTOL, ranged=True)
+    check_batch(syrk, torch, card, work, "pd",
+                [(300 + 10 * j, 600 + 20 * j, j) for j in range(4)],
+                want_key=(1024, 1024))
     unchecked = seen - checked
     print(f"kernel shapes of the solves: {sorted(seen)}; each held against "
           f"the plain version in phase 3: {not unchecked}", flush=True)
@@ -552,12 +720,16 @@ def main() -> int:
     check_simplex(work)
     check_native(mps)
 
+    # the kernel's line: its times at the hsd head, the other timed
+    # layouts beside them; no one PyTorch call computes X diag(s) X' +
+    # diag(e), so library_ms is null (plain_ms is the cuBLAS product)
     print(json.dumps({"kernels": [{
         "name": "scaled_syrk", "route": "cuda",
         "source": "vanderbei_tpu_torch/csrc/scaled_syrk.cu",
         "replaces": "vanderbei_tpu/ops/pallas_kernels.py:35",
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        "max_abs_err": err, "ms": t_k, "plain_ms": t_p}]}), flush=True)
+        "max_abs_err": err, **times["head"], "library_ms": None,
+        "layouts": times}]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -190,7 +190,11 @@ def test_import_loads_no_jax():
             "vanderbei_tpu_torch.models.intpt, "
             "vanderbei_tpu_torch.models.simplex, "
             "vanderbei_tpu_torch.ops.quad, vanderbei_tpu_torch.native, "
-            "vanderbei_tpu_torch.core.builder; "
+            "vanderbei_tpu_torch.core.builder, "
+            "vanderbei_tpu_torch.parallel.batch, "
+            "vanderbei_tpu_torch.evaluate, vanderbei_tpu_torch.sweep, "
+            "vanderbei_tpu_torch.io.netlib, "
+            "vanderbei_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'vanderbei_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

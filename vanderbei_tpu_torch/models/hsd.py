@@ -8,11 +8,17 @@ its beta-neighbourhood quadratic linesearch.  Each iteration does one KKT
 factorization and solves the f- and g-systems through it, combined by the
 dphi formula (hsd.c:230-238).
 
-The loop runs on the host: each iteration reads the loop condition and the
-decided-status flag back from the device (the JAX package's while_loop and
-lax.cond), and the KKT layer reads its own retry and refinement flags.
+Batch-first: A may be (..., m, n) with every state field carrying the same
+leading dims, one LP per lane of a stacked size class (parallel/batch.py);
+the single-LP solve is the case with none.  The loop runs on the host and
+reads one pair of flags per iteration, some lane live (the JAX package's
+while_loop under vmap) and some live lane undecided (the stop test runs
+before the read, so an iteration with nothing to step skips the KKT
+work).  The step is computed for every lane and kept only where the lane
+is live and undecided (the JAX lax.cond under vmap is such a select); the
+KKT layer reads its own retry and refinement flags.
 Everything else, including the stall detector, the quality gate and the
-finite-iterate guard, stays on the device as tensor arithmetic.
+finite-iterate guard, stays on the device as per-lane tensor arithmetic.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import numpy as np
 import torch
 
 from ..core.status import Status
-from ..ops.kkt import kkt_factor, kkt_solve, UbTail, tail_matvec, tail_rmatvec
+from ..ops.kkt import (dot as _dot, kkt_factor, kkt_solve, mv as _mv,
+                       UbTail, tail_matvec, tail_rmatvec, where_lanes)
 from ..ops.quad import dot2, matvec2
 
 DEFAULT_MAX_ITER = 200      # hsd.c:25
@@ -51,7 +58,8 @@ def _trace_row(it, pobj, normr, dobj, norms, mu):
 
 class HsdState(NamedTuple):
     """Solver state; field names match vanderbei_tpu.models.hsd.HsdState
-    (and so the npz checkpoints).  iter, status and stall are 0-d int64."""
+    (and so the npz checkpoints).  Vectors are (..., dim), the scalars
+    (...,), one per lane; iter, status and stall are int64."""
     x: torch.Tensor
     z: torch.Tensor
     y: torch.Tensor
@@ -63,6 +71,19 @@ class HsdState(NamedTuple):
     reg: torch.Tensor       # sticky Tikhonov level of the KKT factor
     mu_best: torch.Tensor   # stall detector: best mu seen ...
     stall: torch.Tensor     # ... and consecutive non-improving iterations
+
+
+class _Decision(NamedTuple):
+    """The first half of an iteration: its residuals and stop test."""
+    mu: torch.Tensor
+    delta: torch.Tensor
+    primal_obj: torch.Tensor
+    dual_obj: torch.Tensor
+    rho: torch.Tensor
+    sigma: torch.Tensor
+    new_status: torch.Tensor
+    mu_best: torch.Tensor
+    stall: torch.Tensor
 
 
 def _hsd_linesearch(v, dv, s, ds, beta, delta, mu):
@@ -85,22 +106,19 @@ def _hsd_linesearch(v, dv, s, ds, beta, delta, mu):
     return torch.where(a == 0.0, lin, torch.where(a > 0.0, pos_a, neg_a))
 
 
-def _int(v: int, device) -> torch.Tensor:
-    return torch.full((), v, dtype=torch.int64, device=device)
-
-
 def init_state(A, extra_rows: int = 0) -> HsdState:
-    """All-ones homogeneous start (hsd.c:98-109); extra_rows counts the
-    implicit ub-tail rows (y/w span the full canonical row space)."""
-    m, n = A.shape
+    """All-ones homogeneous start (hsd.c:98-109) for A (..., m, n);
+    extra_rows counts the implicit ub-tail rows (y/w span the full
+    canonical row space)."""
+    *lead, m, n = A.shape
     m = m + extra_rows
     kw = dict(dtype=A.dtype, device=A.device)
-    return HsdState(torch.ones(n, **kw), torch.ones(n, **kw),
-                    torch.ones(m, **kw), torch.ones(m, **kw),
-                    torch.ones((), **kw), torch.ones((), **kw),
-                    _int(0, A.device), _int(_RUNNING, A.device),
-                    torch.zeros((), **kw),
-                    torch.full((), float("inf"), **kw), _int(0, A.device))
+    i64 = lambda v: torch.full(lead, v, dtype=torch.int64, device=A.device)
+    return HsdState(torch.ones(*lead, n, **kw), torch.ones(*lead, n, **kw),
+                    torch.ones(*lead, m, **kw), torch.ones(*lead, m, **kw),
+                    torch.ones(lead, **kw), torch.ones(lead, **kw),
+                    i64(0), i64(_RUNNING), torch.zeros(lead, **kw),
+                    torch.full(lead, float("inf"), **kw), i64(0))
 
 
 def cast_state(state: HsdState, dtype) -> HsdState:
@@ -109,8 +127,7 @@ def cast_state(state: HsdState, dtype) -> HsdState:
     roundoff) and so does the stall counter."""
     return HsdState(
         *(leaf.to(dtype) for leaf in state[:6]),
-        state.iter, state.status, torch.zeros((), dtype=dtype,
-                                              device=state.x.device),
+        state.iter, state.status, torch.zeros_like(state.reg, dtype=dtype),
         state.mu_best.to(dtype), torch.zeros_like(state.stall))
 
 
@@ -137,26 +154,39 @@ def make_step(A, b, c, *,
               compensated: bool = False,
               corrector: str = "mehrotra",
               ub: UbTail | None = None):
-    """Build the single-iteration step function state -> state (one KKT
-    factorization, the f/g solves, the ratio test or linesearch, the
-    update), as vanderbei_tpu.models.hsd.make_step.
+    """Build the single-iteration step function, as
+    vanderbei_tpu.models.hsd.make_step: body(state) -> state does one KKT
+    factorization, the f/g solves, the ratio test or linesearch and the
+    update.  body.decide(state) is its first half, the residuals and the
+    stop test; body(state, live, pre, step) takes that decision ready-made
+    (pre), keeps the old state in the lanes outside `live` (the JAX
+    while_loop under vmap), and skips the KKT work when step is False
+    (the caller has read that no live lane is undecided).  Every lane
+    steps otherwise, and a decided lane keeps its old iterate (the JAX
+    lax.cond under vmap).
 
     compensated=True is precision "dd": the residual products and the
     inner products go through quad.matvec2 / quad.dot2 (twice the working
     precision), and so do the KKT refinement residuals."""
-    m, n = A.shape
+    m, n = A.shape[-2:]
     if ub is not None:
-        m = m + ub.idx2.shape[0]     # y/w span the implicit tail rows too
+        m = m + ub.idx2.shape[-1]    # y/w span the implicit tail rows too
     dtype = A.dtype
     dev = A.device
     knob = lambda v: torch.full((), v, dtype=dtype, device=dev)
     eps, step_factor, beta = knob(eps), knob(step_factor), knob(beta)
     gap_tol, feas_tol, f = knob(gap_tol), knob(feas_tol), knob(f)
     one = knob(1.0)
-    if compensated:
-        base_mv, dot = matvec2, dot2
-    else:
-        base_mv, dot = torch.matmul, torch.dot
+    # with lanes, every per-lane scalar is kept as (..., 1), so that it
+    # broadcasts against the lane's vectors; a single LP keeps 0-d scalars
+    batched = A.dim() > 2
+    col = (lambda t: t.unsqueeze(-1)) if batched else (lambda t: t)
+    row = (lambda t: t.squeeze(-1)) if batched else (lambda t: t)
+    dot0 = dot2 if compensated else _dot
+    dot = lambda a, b: col(dot0(a, b))
+    vmax = lambda t: t.amax(dim=-1, keepdim=batched)
+    vmin = lambda t: t.amin(dim=-1, keepdim=batched)
+    base_mv = matvec2 if compensated else _mv
     if ub is not None:
         mv = lambda M, v: tail_matvec(M, ub, v, base_mv)
         mvT = lambda M, v: tail_rmatvec(M, ub, v, base_mv)
@@ -164,14 +194,15 @@ def make_step(A, b, c, *,
         mv = base_mv
         mvT = lambda M, v: base_mv(M.mT, v)
 
-    def body(s: HsdState) -> HsdState:
-        x, z, y, w, phi, psi = s.x, s.z, s.y, s.w, s.phi, s.psi
+    def decide(s: HsdState) -> _Decision:
+        x, z, y, w = s.x, s.z, s.y, s.w
+        phi, psi = col(s.phi), col(s.psi)
 
         mu = (dot(z, x) + dot(w, y) + phi * psi) / (n + m + 1)
         if long_step:
             delta = 2.0 * (1.0 - beta)                       # hsdls.c:113
         else:
-            delta = torch.where(s.iter % 2 == 0, 0.0, one)   # hsd.c:138-142
+            delta = torch.where(col(s.iter) % 2 == 0, 0.0, one)  # hsd.c:138
 
         primal_obj = dot(c, x)
         dual_obj = dot(b, y)
@@ -204,28 +235,44 @@ def make_step(A, b, c, *,
                                     int(Status.DUAL_INFEASIBLE), fallback)))
         # stall detector: STALL_LIMIT iterations without a 10% mu gain stop
         # the solve; near the stop tolerance the quality-gated verdict holds
-        improved = mu < 0.9 * s.mu_best
-        stall2 = torch.where(improved, 0, s.stall + 1)
-        mu_best2 = torch.minimum(s.mu_best, mu)
+        improved = mu < 0.9 * col(s.mu_best)
+        stall2 = torch.where(improved, 0, col(s.stall) + 1)
+        mu_best2 = torch.minimum(col(s.mu_best), mu)
         stalled = stall2 >= STALL_LIMIT
         mu_small = mu < torch.maximum(eps * 1.0e3, knob(1.0e-9))
         new_status = torch.where(
             converged | (stalled & mu_small), final,
             torch.where(stalled, _SUBOPTIMAL, _RUNNING))
+        return _Decision(mu, delta, primal_obj, dual_obj, rho, sigma,
+                         new_status, mu_best2, stall2)
+
+    def body(s: HsdState, live=None, pre=None, step=None) -> HsdState:
+        x, z, y, w = s.x, s.z, s.y, s.w
+        phi, psi = col(s.phi), col(s.psi)
+        (mu, delta, primal_obj, dual_obj, rho, sigma, new_status, mu_best2,
+         stall2) = decide(s) if pre is None else pre
 
         if trace:
             _trace_row(s.iter, primal_obj / phi + f,
-                       torch.sqrt(rho @ rho) / phi, dual_obj / phi + f,
-                       torch.sqrt(sigma @ sigma) / phi, mu)
+                       torch.sqrt(dot(rho, rho)) / phi, dual_obj / phi + f,
+                       torch.sqrt(dot(sigma, sigma)) / phi, mu)
 
-        def step():
+        # the lanes whose step is kept: live and still undecided (all of
+        # them, when the caller has read that a single LP steps)
+        known = bool(step) and not batched
+        stepping = None if known else row(new_status == _RUNNING)
+        if live is not None:
+            stepping = stepping & live
+
+        def advance():
             D = z / x
             E = w / y
             fac = kkt_factor(A, E, D, epsdiag, factor_dtype=factor_dtype,
-                             ub=ub, reg0=s.reg)
+                             ub=ub, reg0=s.reg, active=stepping)
             solve = lambda ry, rx: kkt_solve(
                 A, E, D, fac, ry, rx, epsdiag=epsdiag, refine_tol=refine_tol,
-                max_refine=max_refine, compensated=compensated, ub=ub)
+                max_refine=max_refine, compensated=compensated, ub=ub,
+                active=stepping)
 
             def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
                 """Fold a (delta, second-order) Newton system through the
@@ -254,16 +301,16 @@ def make_step(A, b, c, *,
                 # predictor: affine f-system and the g-system in one
                 # 2-column solve through the factor
                 r_aff, s_aff = f_rhs(0.0, zero_x, zero_y)
-                sy, sx = solve(torch.stack([r_aff, -b], dim=1),
-                               torch.stack([-s_aff, -c], dim=1))
-                fy, gy = sy[:, 0], sy[:, 1]
-                fx, gx = sx[:, 0], sx[:, 1]
+                sy, sx = solve(torch.stack([r_aff, -b], dim=-1),
+                               torch.stack([-s_aff, -c], dim=-1))
+                fy, gy = sy[..., 0], sy[..., 1]
+                fx, gx = sx[..., 0], sx[..., 1]
                 dx_a, dy_a, dz_a, dw_a, dphi_a, dpsi_a = directions(
                     0.0, zero_x, zero_y, zero_s, gy, gx, fy, fx)
 
                 # full affine step to the boundary -> adaptive centering
-                t_a = _max(torch.max(-dx_a / x), torch.max(-dz_a / z),
-                           torch.max(-dy_a / y), torch.max(-dw_a / w),
+                t_a = _max(vmax(-dx_a / x), vmax(-dz_a / z),
+                           vmax(-dy_a / y), vmax(-dw_a / w),
                            -dphi_a / phi, -dpsi_a / psi)
                 th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
                                    one)
@@ -278,29 +325,29 @@ def make_step(A, b, c, *,
                 so_x, so_y = dx_a * dz_a, dy_a * dw_a
                 so_phi = dphi_a * dpsi_a
                 r_c, s_c = f_rhs(sig, so_x, so_y)
-                cy, cx = solve(r_c[:, None], -s_c[:, None])
+                cy, cx = solve(r_c.unsqueeze(-1), -s_c.unsqueeze(-1))
                 dx, dy, dz, dw, dphi, dpsi = directions(
-                    sig, so_x, so_y, so_phi, gy, gx, cy[:, 0], cx[:, 0])
+                    sig, so_x, so_y, so_phi, gy, gx, cy[..., 0], cx[..., 0])
             else:
                 rho_rhs, sigma_rhs = f_rhs(delta, zero_x, zero_y)
-                sy, sx = solve(torch.stack([rho_rhs, -b], dim=1),
-                               torch.stack([-sigma_rhs, -c], dim=1))
-                fy, gy = sy[:, 0], sy[:, 1]
-                fx, gx = sx[:, 0], sx[:, 1]
+                sy, sx = solve(torch.stack([rho_rhs, -b], dim=-1),
+                               torch.stack([-sigma_rhs, -c], dim=-1))
+                fy, gy = sy[..., 0], sy[..., 1]
+                fx, gx = sx[..., 0], sx[..., 1]
                 dx, dy, dz, dw, dphi, dpsi = directions(
                     delta, zero_x, zero_y, zero_s, gy, gx, fy, fx)
 
             if long_step:
                 theta = torch.minimum(
-                    torch.min(_hsd_linesearch(x, dx, z, dz, beta, delta, mu)),
-                    torch.min(_hsd_linesearch(y, dy, w, dw, beta, delta, mu)))
+                    vmin(_hsd_linesearch(x, dx, z, dz, beta, delta, mu)),
+                    vmin(_hsd_linesearch(y, dy, w, dw, beta, delta, mu)))
                 theta = torch.minimum(theta, _hsd_linesearch(
                     phi, dphi, psi, dpsi, beta, delta, mu))
                 theta = torch.minimum(theta, one)
                 theta = torch.where(theta < 1.0, theta * 0.9999, theta)
             else:
-                t = _max(torch.max(-dx / x), torch.max(-dz / z),
-                         torch.max(-dy / y), torch.max(-dw / w),
+                t = _max(vmax(-dx / x), vmax(-dz / z),
+                         vmax(-dy / y), vmax(-dw / w),
                          -dphi / phi, -dpsi / psi)
                 theta = torch.where(t > 0.0,
                                     torch.minimum(step_factor / t, one), one)
@@ -308,33 +355,40 @@ def make_step(A, b, c, *,
             return (x + theta * dx, z + theta * dz,
                     y + theta * dy, w + theta * dw,
                     phi + theta * dphi, psi + theta * dpsi,
-                    fac.reg.to(dtype))
+                    col(fac.reg.to(dtype)))
 
-        if bool((new_status != _RUNNING).item()):
-            x2, z2, y2, w2, phi2, psi2, reg2 = x, z, y, w, phi, psi, s.reg
+        old = (x, z, y, w, phi, psi, col(s.reg))
+        if step is False:
+            x2, z2, y2, w2, phi2, psi2, reg2 = old
+        elif known:
+            x2, z2, y2, w2, phi2, psi2, reg2 = advance()
         else:
-            x2, z2, y2, w2, phi2, psi2, reg2 = step()
+            go = col(stepping)
+            x2, z2, y2, w2, phi2, psi2, reg2 = (
+                torch.where(go, new, prev) for new, prev in zip(advance(), old))
 
         # numerical-failure guard: a step with any non-finite value keeps
         # the last finite iterate and stops SUBOPTIMAL (hsdls.c:151)
+        fin = lambda t: torch.isfinite(t).all(dim=-1, keepdim=batched)
         ok = (torch.isfinite(phi2) & torch.isfinite(psi2)
-              & torch.isfinite(x2).all() & torch.isfinite(z2).all()
-              & torch.isfinite(y2).all() & torch.isfinite(w2).all())
+              & fin(x2) & fin(z2) & fin(y2) & fin(w2))
 
-        def pick(new, old):
-            return torch.where(ok, new, old)
+        def pick(new, prev):
+            return torch.where(ok, new, prev)
 
-        return HsdState(pick(x2, x), pick(z2, z), pick(y2, y),
-                        pick(w2, w), pick(phi2, phi), pick(psi2, psi),
-                        s.iter + 1,
-                        torch.where(ok, new_status, _SUBOPTIMAL),
-                        reg2, mu_best2, stall2)
+        out = HsdState(pick(x2, x), pick(z2, z), pick(y2, y),
+                       pick(w2, w), *(row(t) for t in (
+                           pick(phi2, phi), pick(psi2, psi), col(s.iter) + 1,
+                           torch.where(ok, new_status, _SUBOPTIMAL),
+                           reg2, mu_best2, stall2)))
+        return out if live is None else where_lanes(live, out, s)
 
+    body.decide = decide
     return body
 
 
 def _mu(s: HsdState, n_total: int):
-    return (s.z @ s.x + s.w @ s.y + s.phi * s.psi) / n_total
+    return (_dot(s.z, s.x) + _dot(s.w, s.y) + s.phi * s.psi) / n_total
 
 
 def _hsd_loop(A, b, c, f, init: HsdState, *,
@@ -356,8 +410,10 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
     the time.monotonic() `deadline` passes (checked after each iteration).
     on_iter(state), if given, sees the state before each step.
 
-    Returns (state, paused): the state NOT de-homogenized, and whether the
-    loop stopped because mu reached pause_mu with the solve still running.
+    Each lane stops on its own; the loop runs while any lane runs.
+    Returns (state, paused): the state NOT de-homogenized, and whether
+    every lane stopped because mu reached pause_mu with its solve still
+    running.
     """
     body = make_step(A, b, c, eps=eps, step_factor=step_factor,
                      beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
@@ -365,22 +421,30 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
                      long_step=long_step, max_refine=max_refine,
                      trace=trace, f=f, factor_dtype=factor_dtype,
                      compensated=compensated, corrector=corrector, ub=ub)
-    m, n = A.shape
+    m, n = A.shape[-2:]
     if ub is not None:
-        m = m + ub.idx2.shape[0]
+        m = m + ub.idx2.shape[-1]
     pause = torch.full((), pause_mu, dtype=A.dtype, device=A.device)
     state = init
     while True:
-        live = (state.status == _RUNNING) & (state.iter < max_iter)
-        if not bool((live & (_mu(state, n + m + 1) > pause)).item()):
+        # the stop test of this iteration goes into the loop's one read:
+        # whether any lane is live, and whether any live lane steps
+        pre = body.decide(state)
+        live = ((state.status == _RUNNING) & (state.iter < max_iter)
+                & (_mu(state, n + m + 1) > pause))
+        stepping = live & (pre.new_status == _RUNNING).reshape(live.shape)
+        any_live, any_step = torch.stack([live.any(), stepping.any()]
+                                         ).tolist()
+        if not any_live:
             break
         if on_iter is not None:
             on_iter(state)
-        state = body(state)
+        # a single LP steps only when live: no lanes to keep
+        state = body(state, live if live.dim() else None, pre, any_step)
         if deadline is not None and time.monotonic() > deadline:
             break
     paused = bool(((state.status == _RUNNING) & (state.iter < max_iter)
-                   & (_mu(state, n + m + 1) <= pause)).item())
+                   & (_mu(state, n + m + 1) <= pause)).all().item())
     return state, paused
 
 
@@ -389,7 +453,7 @@ def finish_state(state: HsdState, max_iter):
     status = torch.where(
         (state.status == _RUNNING) & (state.iter >= max_iter),
         int(Status.ITERATION_LIMIT), state.status)
-    phi = state.phi
+    phi = state.phi.unsqueeze(-1)
     return (status, state.x / phi, state.y / phi, state.w / phi,
             state.z / phi, state.iter)
 

@@ -38,6 +38,16 @@ from . import intpt as _intpt
 from . import simplex as _simplex
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device); "cuda" raises when no CUDA device is present
+    (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device is "
+                           "available; pass device='cpu' explicitly")
+    return device
+
+
 def size_class(dim: int, floor: int = 256) -> int:
     """Padded size class for dim: powers of two up to 2048, then multiples
     of 512 (vanderbei_tpu.models.registry.size_class)."""
@@ -296,10 +306,7 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
     pad_to: "auto" pads canonical dims to the size classes, as the JAX
     package does; an int pads to that multiple (1 = exact dims).
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("solve(device='cuda'): no CUDA device is "
-                           "available; pass device='cpu' explicitly")
+    device = resolve_device(device)
     cfg = config or SolverConfig()
     cfg = cfg.with_(method=method).apply_lp_params(lp)
     if lp.qnz and method != "intpt":

@@ -14,12 +14,19 @@ rank-1 product-form pivot, and refactored every cfg.refresh_every pivots
 with torch.linalg.inv; a refactor also re-derives every iterate vector from
 the fresh inverse, so product-form drift cannot fake a late verdict.
 
-The pivot loop runs on the host: each pivot reads its choices (the
-entering and leaving positions) back from the device, the vectors stay
-there.  The perturbations are uniform draws from a torch.Generator seeded
-with cfg.seed, drawn on the CPU so every device gets the same run; a caller
-may pass its own draws instead (the tests pass the JAX package's).
-cfg.time_limit (TIMLIM) is checked after every pivot, in both methods.
+pd is batch-first: one body pivots every lane of a stacked size class
+(B, m, N) at once, with per-lane argmax/argmin choices, column gathers, a
+rank-1 B^-1 update and basis swaps by scatter; a lane that has finished
+keeps its state.  The single LP is the batch of one.  The host reads one
+flag, "some lane still runs", per refresh_every pivots, where the refactor
+runs; the pivots between no-op in finished lanes, as the JAX package's
+chunked loop under vmap does.  On a CUDA device a pivot is one replay of
+a CUDA graph of the body.  twophase has no batched path (neither has
+the JAX package's) and decides each pivot on the host.  The perturbations
+are uniform draws from a torch.Generator seeded with cfg.seed, drawn on
+the CPU so every device gets the same run; a caller may pass its own
+draws instead (the tests pass the JAX package's).  cfg.time_limit
+(TIMLIM) is checked after every pivot, in both methods.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from ..core.config import SolverConfig
 from ..core.status import Status
+from ..ops.kkt import where_lanes
 
 EPS1 = 1.0e-8       # pivot eligibility (pd.c:39)
 EPS2 = 1.0e-12      # perturbation positivity floor (pd.c:40)
@@ -52,17 +60,16 @@ def _trace_row(it, obj, mu):
 
 
 class PdState(NamedTuple):
-    """pd's state.  The vectors live on the device; iter and status are
-    host ints, since the host decides every pivot."""
-    Binv: torch.Tensor       # (m, m) explicit basis inverse
-    basics: torch.Tensor     # (m,) int64 column ids in [0, N)
-    nonbasics: torch.Tensor  # (n,) int64 column ids
-    x_B: torch.Tensor        # (m,)
-    xbar_B: torch.Tensor     # (m,)
-    y_N: torch.Tensor        # (n,)
-    ybar_N: torch.Tensor     # (n,)
-    iter: int
-    status: int
+    """pd's state, one lane per LP of a batch, all on the device."""
+    Binv: torch.Tensor       # (B, m, m) explicit basis inverse
+    basics: torch.Tensor     # (B, m) int64 column ids in [0, N)
+    nonbasics: torch.Tensor  # (B, n) int64 column ids
+    x_B: torch.Tensor        # (B, m)
+    xbar_B: torch.Tensor     # (B, m)
+    y_N: torch.Tensor        # (B, n)
+    ybar_N: torch.Tensor     # (B, n)
+    iter: torch.Tensor       # (B,) int64
+    status: torch.Tensor     # (B,) int64
 
 
 class TpState(NamedTuple):
@@ -98,11 +105,10 @@ def _pivot_binv(Binv, dx_B, col_out: int):
 
 
 def _masked_argmin(vals, mask):
-    """(index, value) of the smallest vals[i] with mask[i]; the index is
-    -1 where no entry is masked.  Two 0-d tensors, still on the device."""
+    """Index of the smallest vals[..., i] with mask[..., i] along the last
+    dim, -1 where no entry is masked; still on the device."""
     masked = torch.where(mask, vals, torch.full_like(vals, float("inf")))
-    idx = torch.argmin(masked)
-    return torch.where(mask.any(), idx, -1), masked[idx]
+    return torch.where(mask.any(-1), torch.argmin(masked, -1), -1)
 
 
 def _dy_nonbasic(Afull, Binv, nonbasics, col_out: int):
@@ -141,111 +147,202 @@ def _run(cond, body, refresh, state, refresh_every: int, deadline):
     return state, False
 
 
+def _copy_into(dst, src):
+    """Copy every tensor of the state src into dst's; returns dst."""
+    for d, t in zip(dst, src):
+        d.copy_(t)
+    return dst
+
+
+def _graph_step(body, state):
+    """Capture body (state -> new state, no host reads) as one CUDA graph
+    that reads a static copy of state and writes its result back into it.
+    Returns (the static state, step), step(static) replaying the graph."""
+    static = type(state)(*(t.clone() for t in state))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body(static)                    # warm-up, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _copy_into(static, body(static))
+
+    def step(s):
+        graph.replay()
+        return s
+
+    return static, step
+
+
+def _reduced_costs_b(Afull, Binv, basics, nonbasics, cvec):
+    """_reduced_costs lane by lane: Afull (B, m, N), cvec (B, N)."""
+    v = (cvec.gather(-1, basics)[:, None, :] @ Binv)
+    return ((v @ Afull)[:, 0] - cvec).gather(-1, nonbasics)
+
+
 def _transcribe(basics, nonbasics, x_B, y_N, n: int):
-    """(x, y, w, z) from the final basis (pd.c:431-445)."""
-    N = basics.shape[0] + nonbasics.shape[0]
-    x_full = torch.zeros(N, dtype=x_B.dtype, device=x_B.device)
-    y_full = torch.zeros_like(x_full)
-    x_full[basics] = x_B
-    y_full[nonbasics] = y_N
-    return x_full[:n], y_full[n:], x_full[n:], y_full[:n]
+    """(x, y, w, z) from the final basis (pd.c:431-445); the vectors may
+    carry a leading batch dim."""
+    N = basics.shape[-1] + nonbasics.shape[-1]
+    x_full = torch.zeros(*x_B.shape[:-1], N, dtype=x_B.dtype,
+                         device=x_B.device)
+    x_full = x_full.scatter(-1, basics, x_B)
+    y_full = torch.zeros_like(x_full).scatter(-1, nonbasics, y_N)
+    return (x_full[..., :n], y_full[..., n:], x_full[..., n:],
+            y_full[..., :n])
 
 
 # ---------------------------------------------------------------------------
 # parametric self-dual (pd.c)
 # ---------------------------------------------------------------------------
 
+def _at(v, idx):
+    """v[k, idx[k]] for each lane k: v (B, d), idx (B,)."""
+    return v.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+
+
+def _set_at(v, idx, val):
+    """v with v[k, idx[k]] = val[k] for each lane k."""
+    return v.scatter(-1, idx.unsqueeze(-1), val.unsqueeze(-1))
+
+
 def _pd_loop(Afull, b, c, u_x, u_y, *, max_iter: int, refresh_every: int,
              trace: bool = False, deadline: float | None = None):
-    """Run pd on [A | I] x = b, max c'x.  u_x (m,) and u_y (n,) are the
-    U[0,1) draws of the perturbations xbar = u_x + rscale and
-    ybar = u_y + cscale (pd.c:193-200).
+    """Run pd on [A | I] x = b, max c'x, for every lane of Afull (B, m, N),
+    b (B, m), c (B, N).  u_x (B, m) and u_y (B, n) are the U[0,1) draws of
+    the perturbations xbar = u_x + rscale and ybar = u_y + cscale
+    (pd.c:193-200).  trace prints lane 0's pivots.
 
-    Returns (status, x, y, w, z, pivots)."""
-    m, N = Afull.shape
+    Returns (status, x, y, w, z, pivots), each batched over B."""
+    B, m, N = Afull.shape
     n = N - m
     dev, dtype = Afull.device, Afull.dtype
-    A0 = Afull[:, :n]
+    A0 = Afull[..., :n]
     # row/col 2-norms over the structural columns (pd.c:179-187)
-    xbar = u_x + torch.sqrt(torch.sum(A0 * A0, dim=1))
-    ybar = u_y + torch.sqrt(torch.sum(A0 * A0, dim=0))
+    xbar = u_x + torch.sqrt(torch.sum(A0 * A0, dim=-1))
+    ybar = u_y + torch.sqrt(torch.sum(A0 * A0, dim=-2))
     # x_B = B^-1 b, xbar_B = B^-1 xbar, y_N = z_N(c), ybar_N = z_N(cbar)
     # hold at every basis; the refactor recomputes them from these
-    cbar = torch.cat([-ybar, torch.zeros(m, dtype=dtype, device=dev)])
+    cbar = torch.cat([-ybar, torch.zeros(B, m, dtype=dtype, device=dev)], -1)
+    i64 = lambda v: torch.full((B,), v, dtype=torch.int64, device=dev)
+    arange = lambda lo, hi: torch.arange(lo, hi, device=dev).expand(B, -1)
 
     state = PdState(
-        Binv=torch.eye(m, dtype=dtype, device=dev),
-        basics=torch.arange(n, N, device=dev),
-        nonbasics=torch.arange(0, n, device=dev),
-        x_B=b.clone(), xbar_B=xbar, y_N=-c[:n], ybar_N=ybar,
-        iter=0, status=_RUNNING)
+        Binv=torch.eye(m, dtype=dtype, device=dev).expand(B, m, m).clone(),
+        basics=arange(n, N).clone(), nonbasics=arange(0, n).clone(),
+        x_B=b.clone(), xbar_B=xbar, y_N=-c[..., :n], ybar_N=ybar,
+        iter=i64(0), status=i64(_RUNNING))
     neg_inf = torch.full((), float("-inf"), dtype=dtype, device=dev)
 
-    def cond(s: PdState):
-        return s.status == _RUNNING and s.iter < max_iter
+    def running(s: PdState):
+        return (s.status == _RUNNING) & (s.iter < max_iter)
+
+    def column(s: PdState, pos):
+        """Column nonbasics[pos] of Afull per lane, (B, m)."""
+        j = _at(s.nonbasics, pos)
+        return Afull.gather(-1, j[:, None, None].expand(B, m, 1))[..., 0]
+
+    def dy_nonbasic(s: PdState, pos):
+        """dy_N = -((B^-1)_{pos,:} A_full) at the nonbasic columns, per
+        lane (the dense fusion of btsolve + Nt_times_y, pd.c:258-265)."""
+        row = s.Binv.gather(-2, pos[:, None, None].expand(B, 1, m))
+        return (-row @ Afull)[:, 0].gather(-1, s.nonbasics)
 
     def body(s: PdState) -> PdState:
+        run = running(s)
         # STEP 1: largest mu forcing a pivot (pd.c:224-247)
         cand_d = torch.where(s.ybar_N > EPS2, -s.y_N / s.ybar_N, neg_inf)
         cand_p = torch.where(s.xbar_B > EPS2, -s.x_B / s.xbar_B, neg_inf)
-        jd, ip = torch.argmax(cand_d), torch.argmax(cand_p)
-        vd, vp, jd, ip = torch.stack([cand_d[jd], cand_p[ip],
-                                      jd.to(dtype), ip.to(dtype)]).tolist()
-        jd, ip = int(jd), int(ip)
-        mu = max(vd, vp)
-        if trace:
-            _trace_row(s.iter, c[s.basics] @ s.x_B, mu)
-        if mu <= EPS3:
-            return s._replace(status=int(Status.OPTIMAL), iter=s.iter + 1)
+        jd, ip = torch.argmax(cand_d, -1), torch.argmax(cand_p, -1)
+        vd, vp = _at(cand_d, jd), _at(cand_p, ip)
+        mu = torch.maximum(vd, vp)
+        if trace and bool(run[0]):
+            _trace_row(s.iter[0], _at(c, s.basics)[0] @ s.x_B[0], mu[0])
+        optimal = mu <= EPS3
+        primal = vp > vd     # strict, as in pd.c:237-241
+        # primal scan: basis slot ip leaves, the entrant from the dual
+        # ratio test (pd.c:249-292); dual scan: nonbasic slot jd enters,
+        # the leaver from the primal ratio test (pd.c:294-338)
+        dy_p = dy_nonbasic(s, ip)
+        col_in_p = _masked_argmin((s.y_N + mu[:, None] * s.ybar_N) / dy_p,
+                                  dy_p > EPS1)
+        dx_d = (s.Binv @ column(s, jd)[..., None])[..., 0]
+        col_out_d = _masked_argmin((s.x_B + mu[:, None] * s.xbar_B) / dx_d,
+                                   dx_d > EPS1)
+        col_in = torch.where(primal, col_in_p, jd)
+        col_out = torch.where(primal, ip, col_out_d)
+        failed = (col_in < 0) | (col_out < 0)
+        ci, co = col_in.clamp_min(0), col_out.clamp_min(0)
+        dx_B = (s.Binv @ column(s, ci)[..., None])[..., 0]
+        dy_N = dy_nonbasic(s, co)
 
-        if vp > vd:      # strict, as in pd.c:237-241
-            # primal scan won: basis slot ip leaves; the entrant comes
-            # from the dual ratio test (pd.c:249-292)
-            col_out = ip
-            dy_N = _dy_nonbasic(Afull, s.Binv, s.nonbasics, col_out)
-            col_in = int(_masked_argmin((s.y_N + mu * s.ybar_N) / dy_N,
-                                        dy_N > EPS1)[0])
-            dx_B = (None if col_in < 0 else
-                    s.Binv @ _column(Afull, s.nonbasics, col_in))
-            fail = int(Status.PRIMAL_INFEASIBLE)
-        else:
-            # dual scan won: nonbasic slot jd enters; the leaver comes
-            # from the primal ratio test (pd.c:294-338)
-            col_in = jd
-            dx_B = s.Binv @ _column(Afull, s.nonbasics, col_in)
-            col_out = int(_masked_argmin((s.x_B + mu * s.xbar_B) / dx_B,
-                                         dx_B > EPS1)[0])
-            dy_N = (None if col_out < 0 else
-                    _dy_nonbasic(Afull, s.Binv, s.nonbasics, col_out))
-            fail = int(Status.PRIMAL_UNBOUNDED)
-        if col_in < 0 or col_out < 0:
-            return s._replace(status=fail, iter=s.iter + 1)
+        piv = _at(dx_B, co)
+        t, tbar = _at(s.x_B, co) / piv, _at(s.xbar_B, co) / piv
+        dpiv = _at(dy_N, ci)
+        sv, sbar = _at(s.y_N, ci) / dpiv, _at(s.ybar_N, ci) / dpiv
+        y_N = _set_at(s.y_N - sv[:, None] * dy_N, ci, sv)
+        ybar_N = _set_at(s.ybar_N - sbar[:, None] * dy_N, ci, sbar)
+        x_B = _set_at(s.x_B - t[:, None] * dx_B, co, t)
+        xbar_B = _set_at(s.xbar_B - tbar[:, None] * dx_B, co, tbar)
+        basics = _set_at(s.basics, co, _at(s.nonbasics, ci))
+        nonbasics = _set_at(s.nonbasics, ci, _at(s.basics, co))
+        # product-form update of B^-1 (see _pivot_binv), lane by lane
+        rows = co[:, None, None].expand(B, 1, m)
+        row = s.Binv.gather(-2, rows) / piv[:, None, None]
+        Binv = (s.Binv - dx_B[..., None] * row).scatter(-2, rows, row)
+        pivoted = PdState(Binv, basics, nonbasics, x_B, xbar_B, y_N, ybar_N,
+                          s.iter, s.status)
 
-        t = s.x_B[col_out] / dx_B[col_out]
-        tbar = s.xbar_B[col_out] / dx_B[col_out]
-        sv = s.y_N[col_in] / dy_N[col_in]
-        sbar = s.ybar_N[col_in] / dy_N[col_in]
-        y_N = s.y_N - sv * dy_N
-        ybar_N = s.ybar_N - sbar * dy_N
-        x_B = s.x_B - t * dx_B
-        xbar_B = s.xbar_B - tbar * dx_B
-        y_N[col_in], ybar_N[col_in] = sv, sbar
-        x_B[col_out], xbar_B[col_out] = t, tbar
-        basics, nonbasics = _swap(s.basics, s.nonbasics, col_in, col_out)
-        return PdState(_pivot_binv(s.Binv, dx_B, col_out), basics, nonbasics,
-                       x_B, xbar_B, y_N, ybar_N, s.iter + 1, s.status)
+        fail = torch.where(primal, int(Status.PRIMAL_INFEASIBLE),
+                           int(Status.PRIMAL_UNBOUNDED))
+        status = torch.where(optimal, int(Status.OPTIMAL),
+                             torch.where(failed, fail, s.status))
+        out = where_lanes(run & ~optimal & ~failed, pivoted, s)
+        return out._replace(iter=torch.where(run, s.iter + 1, s.iter),
+                            status=torch.where(run, status, s.status))
 
     def refresh(s: PdState) -> PdState:
-        """True refactor: a fresh B^-1 AND the iterates re-derived from it."""
-        Binv = _refresh_binv(Afull, s.basics)
-        return s._replace(
-            Binv=Binv, x_B=Binv @ b, xbar_B=Binv @ xbar,
-            y_N=_reduced_costs(Afull, Binv, s.basics, s.nonbasics, c),
-            ybar_N=_reduced_costs(Afull, Binv, s.basics, s.nonbasics, cbar))
+        """True refactor of the running lanes: a fresh B^-1 AND the
+        iterates re-derived from it."""
+        Bmat = Afull.gather(-1, s.basics[:, None, :].expand(B, m, m))
+        if dev.type == "cpu":
+            # MKL's batched LU (getrf over a batch, on several threads)
+            # fails on some hosts ("DLASWP parameter 6"): lane by lane
+            Binv = torch.stack([torch.linalg.inv_ex(Bl)[0] for Bl in Bmat])
+        else:
+            Binv = torch.linalg.inv_ex(Bmat)[0]
+        mvb = lambda v: (Binv @ v[..., None])[..., 0]
+        fresh = s._replace(
+            Binv=Binv, x_B=mvb(b), xbar_B=mvb(xbar),
+            y_N=_reduced_costs_b(Afull, Binv, s.basics, s.nonbasics, c),
+            ybar_N=_reduced_costs_b(Afull, Binv, s.basics, s.nonbasics,
+                                    cbar))
+        return where_lanes(running(s), fresh, s)
 
-    out, _ = _run(cond, body, refresh, state, refresh_every, deadline)
-    status = (int(Status.ITERATION_LIMIT) if out.status == _RUNNING
-              else out.status)
+    # on the card one pivot is one CUDA graph replay: the body's ~100
+    # small kernels launched eagerly would bound the loop on the host
+    if dev.type == "cuda" and not trace:
+        state, step = _graph_step(body, state)
+        put = _copy_into
+    else:
+        step, put = body, lambda old, new: new
+    # refresh_every guarded pivots, then one refactor of the running
+    # lanes and one read of the loop flag (vanderbei_tpu's _chunked_loop)
+    k = 0
+    while True:
+        if k % refresh_every == 0:
+            if k:
+                state = put(state, refresh(state))
+            if not bool(running(state).any().item()):
+                break
+        state = step(state)
+        k += 1
+        if deadline is not None and time.monotonic() > deadline:
+            break
+    out = state
+    status = torch.where(out.status == _RUNNING, int(Status.ITERATION_LIMIT),
+                         out.status)
     return (status, *_transcribe(out.basics, out.nonbasics, out.x_B, out.y_N,
                                  n), out.iter)
 
@@ -301,7 +398,7 @@ def _twophase_loop(Afull, b, c, u_y, *, max_iter: int, refresh_every: int,
             return s._replace(iter=s.iter + 1)
         col_out = int(col_out)
         dy_N = _dy_nonbasic(Afull, s.Binv, s.nonbasics, col_out)
-        col_in = int(_masked_argmin(s.y_N / dy_N, dy_N > EPS1)[0])
+        col_in = int(_masked_argmin(s.y_N / dy_N, dy_N > EPS1))
         if col_in < 0:
             return s._replace(status=int(Status.PRIMAL_INFEASIBLE),
                               iter=s.iter + 1)
@@ -319,7 +416,7 @@ def _twophase_loop(Afull, b, c, u_y, *, max_iter: int, refresh_every: int,
             return s._replace(status=int(Status.OPTIMAL), iter=s.iter + 1)
         col_in = int(col_in)
         dx_B = s.Binv @ _column(Afull, s.nonbasics, col_in)
-        col_out = int(_masked_argmin(s.x_B / dx_B, dx_B > EPS1)[0])
+        col_out = int(_masked_argmin(s.x_B / dx_B, dx_B > EPS1))
         if col_out < 0:
             return s._replace(status=int(Status.PRIMAL_UNBOUNDED),
                               iter=s.iter + 1)
@@ -365,13 +462,14 @@ def _prepare(canon, cfg: SolverConfig, device):
     return Afull, b, c
 
 
-def perturbation_draws(cfg: SolverConfig, m: int, n: int):
-    """The U[0,1) draws (u_x (m,), u_y (n,)) of the pd perturbations, from
-    a CPU torch.Generator seeded with cfg.seed; twophase uses u_y."""
+def perturbation_draws(cfg: SolverConfig, m: int, n: int, lanes=()):
+    """The U[0,1) draws (u_x (*lanes, m), u_y (*lanes, n)) of the pd
+    perturbations, from a CPU torch.Generator seeded with cfg.seed;
+    twophase uses u_y."""
     gen = torch.Generator().manual_seed(int(cfg.seed))
     dtype = torch.from_numpy(np.zeros(0, cfg.dtype)).dtype
-    u_x = torch.rand(m, generator=gen, dtype=dtype)
-    u_y = torch.rand(n, generator=gen, dtype=dtype)
+    u_x = torch.rand(*lanes, m, generator=gen, dtype=dtype)
+    u_y = torch.rand(*lanes, n, generator=gen, dtype=dtype)
     return u_x, u_y
 
 
@@ -404,10 +502,14 @@ def solve_canon_pd(canon, cfg: SolverConfig, device, stages: list,
     u_x, u_y = draws if draws is not None else perturbation_draws(cfg, m, n)
     if cfg.verbose >= 2:
         print(SIMPLEX_BANNER, flush=True)
-    out = _pd_loop(Afull, b, c, _draw_to(u_x, Afull), _draw_to(u_y, Afull),
-                   max_iter=cfg.max_iter or cfg.simplex_max_iter,
-                   refresh_every=cfg.refresh_every, trace=cfg.verbose >= 2,
-                   deadline=deadline)
+    one = lambda t: t.unsqueeze(0)      # the batch of one
+    status, x, y, w, z, iters = _pd_loop(
+        one(Afull), one(b), one(c), one(_draw_to(u_x, Afull)),
+        one(_draw_to(u_y, Afull)),
+        max_iter=cfg.max_iter or cfg.simplex_max_iter,
+        refresh_every=cfg.refresh_every, trace=cfg.verbose >= 2,
+        deadline=deadline)
+    out = (int(status[0]), x[0], y[0], w[0], z[0], int(iters[0]))
     return _finish(out, t0, stages)
 
 

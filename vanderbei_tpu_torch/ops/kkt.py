@@ -15,18 +15,26 @@ epsdiag escalation, ldlt.c:293-306), and solves are refined against the
 unclamped E, D until the residual stops halving, reverting a last
 correction that made it worse (ldlt.c:411-416).
 
+Batch-first: every operand may carry leading dims, A (..., m, n) with
+E (..., m), D (..., n), one LP per lane (a stacked size class).  The
+retry and the refinement decide per lane, as the JAX package's while_loops
+do under vmap: the retry refactors only the lanes whose factor failed, the
+refinement updates only the lanes still refining.  A lane outside the
+`active` mask (a lane whose step the caller discards) drives neither loop.
+The single-LP path is the case with no leading dims.
+
 Every f32 normal matrix is formed by ops/syrk.scaled_syrk, the hand-written
-Hopper kernel on a CUDA tensor.  The f64 product, the Cholesky factor
-(cholesky_ex, whose `info` joins the NaN/Inf scan), the triangular solves
-and the matvecs stay torch.matmul / torch.linalg.  The factor's retry and
-each refinement pass read one flag on the host.
+Hopper kernel on a CUDA tensor, in one launch for the whole batch.  The
+f64 product, the Cholesky factor (cholesky_ex, whose `info` joins the
+NaN/Inf scan), the triangular solves and the matvecs stay torch.matmul /
+torch.linalg.  Each factor retry and each refinement pass reads one flag
+on the host.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .quad import matvec2
@@ -37,30 +45,79 @@ def use_primal_form(m: int, n: int, has_q: bool) -> bool:
     return (m <= n) and not has_q
 
 
+def mv(A, x):
+    """A @ x for x a vector (..., n) or a stack of columns (..., n, k)."""
+    if x.dim() == 1 or x.dim() == A.dim():
+        return A @ x
+    return (A @ x.unsqueeze(-1)).squeeze(-1)
+
+
+def dot(a, b):
+    """Inner product along the last dim, one per lane (torch.dot, one
+    kernel, on a single vector)."""
+    return torch.dot(a, b) if a.dim() == 1 else torch.linalg.vecdot(a, b)
+
+
+def lanes(mask, like):
+    """A per-lane mask (...) shaped to broadcast against `like`."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def where_lanes(mask, new, old):
+    """Per-lane select of two solver states (NamedTuples of tensors)."""
+    return type(new)(*(torch.where(lanes(mask, a), a, b)
+                       for a, b in zip(new, old)))
+
+
 class UbTail(NamedTuple):
     """Canonical tail rows that are singleton upper-bound rows
     (w2[i] * x[idx2[i]] <= b2[i]) or padding (w2[i] = 0).  Their block of
     the normal equations is diagonal, so the factor Schur-eliminates them
     and only the m1 x m1 head is factored (see vanderbei_tpu.ops.kkt)."""
-    idx2: torch.Tensor   # (k,) int64 column index per tail row
-    w2: torch.Tensor     # (k,) coefficient per tail row (0 = padding)
+    idx2: torch.Tensor   # (..., k) int64 column index per tail row
+    w2: torch.Tensor     # (..., k) coefficient per tail row (0 = padding)
 
 
-def _w2(ub: UbTail, v: torch.Tensor) -> torch.Tensor:
-    return ub.w2 if v.dim() == 1 else ub.w2[:, None]
+def _take(v, idx):
+    """v's entries (rows, for a stack v (..., n, k)) at idx (..., K)."""
+    if idx.dim() == 1:
+        return v[idx]
+    if v.dim() == idx.dim():
+        return torch.gather(v, -1, idx)
+    return torch.gather(v, -2, idx.unsqueeze(-1).expand(*idx.shape,
+                                                         v.shape[-1]))
 
 
-def tail_matvec(A1, ub: UbTail, x, mv=torch.matmul):
-    """[A1; S] @ x where S are the ub/padding tail rows; x is (n,) or (n, k).
-    mv(M, v) forms the head product (quad.matvec2 in compensated mode)."""
-    return torch.cat([mv(A1, x), _w2(ub, x) * x[ub.idx2]])
+def _add_at(v, idx, src):
+    """v with src added at idx (rows, for a stack), duplicates summed."""
+    if idx.dim() == 1:
+        return v.index_add(0, idx, src)
+    if v.dim() == idx.dim():
+        return v.scatter_add(-1, idx, src)
+    return v.scatter_add(-2, idx.unsqueeze(-1).expand_as(src), src)
 
 
-def tail_rmatvec(A1, ub: UbTail, y, mv=torch.matmul):
-    """[A1; S]' @ y.  index_add sums duplicate indices (padding rows all
-    point at column 0 with weight 0)."""
-    m1 = A1.shape[0]
-    return mv(A1.mT, y[:m1]).index_add_(0, ub.idx2, _w2(ub, y) * y[m1:])
+def _w2(ub: UbTail, v, stack: bool):
+    return ub.w2.unsqueeze(-1) if stack else ub.w2
+
+
+def tail_matvec(A1, ub: UbTail, x, mv=mv):
+    """[A1; S] @ x where S are the ub/padding tail rows; x is (..., n) or
+    (..., n, k).  mv(M, v) forms the head product (quad.matvec2 in
+    compensated mode)."""
+    stack = x.dim() == A1.dim()
+    return torch.cat([mv(A1, x), _w2(ub, x, stack) * _take(x, ub.idx2)],
+                     dim=-2 if stack else -1)
+
+
+def tail_rmatvec(A1, ub: UbTail, y, mv=mv):
+    """[A1; S]' @ y.  Duplicate indices sum (padding rows all point at
+    column 0 with weight 0)."""
+    m1 = A1.shape[-2]
+    stack = y.dim() == A1.dim()
+    head, tail = ((y[..., :m1, :], y[..., m1:, :]) if stack
+                  else (y[..., :m1], y[..., m1:]))
+    return _add_at(mv(A1.mT, head), ub.idx2, _w2(ub, y, stack) * tail)
 
 
 class KKTFactor(NamedTuple):
@@ -68,7 +125,8 @@ class KKTFactor(NamedTuple):
 
     L may be lower precision than the data; solves cast through L.dtype
     and refinement recovers the rest.  g2 is the Schur-eliminated tail
-    diagonal (UbTail path), reg the Tikhonov level the factor ended at."""
+    diagonal (UbTail path), reg the Tikhonov level each lane's factor
+    ended at."""
     L: torch.Tensor
     s: torch.Tensor
     g2: torch.Tensor = None
@@ -76,19 +134,21 @@ class KKTFactor(NamedTuple):
 
 
 def _cholesky(Mr):
+    """(L, bad): bad per matrix, a failed factor or a non-finite L."""
     L, info = torch.linalg.cholesky_ex(Mr)
-    bad = bool(((info != 0) | ~torch.isfinite(L).all()).item())
-    return L, info, bad
+    bad = (info != 0) | ~torch.isfinite(L).flatten(-2).all(dim=-1)
+    return L, bad
 
 
 def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
-               ub: UbTail | None = None, reg0=None) -> KKTFactor:
+               ub: UbTail | None = None, reg0=None, active=None) -> KKTFactor:
     """Cholesky-factor the reduced normal-equations matrix.
 
-    E, D are clamped below by epsdiag (ldlt.c:235-236).  reg0 seeds the
-    Tikhonov escalation with the level the previous iteration's factor
-    needed (sticky, like the reference's epsdiag)."""
-    m, n = A.shape
+    E, D are clamped below by epsdiag (ldlt.c:235-236).  reg0 (one level
+    per lane) seeds the Tikhonov escalation with the level the previous
+    iteration's factor needed (sticky, like the reference's epsdiag).
+    active: a per-lane mask; lanes outside it do not retry."""
+    m, n = A.shape[-2:]
     Ec = E.clamp_min(epsdiag)        # clamp_min propagates NaN, as
     Dc = D.clamp_min(epsdiag)        # jnp.maximum does
     g2 = None
@@ -97,21 +157,22 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         # head with harmonically reduced column weights (see UbTail)
         assert Q is None, "ub tail structure requires the primal (LP) form"
         m1 = m
-        E1, E2 = Ec[:m1], Ec[m1:]
+        E1, E2 = Ec[..., :m1], Ec[..., m1:]
         Dinv = 1.0 / Dc
-        d2 = ub.w2 * ub.w2 * Dinv[ub.idx2]
+        d2 = ub.w2 * ub.w2 * _take(Dinv, ub.idx2)
         g2 = E2 + d2
-        corr = d2 * Dinv[ub.idx2] / g2       # exactly 0 on padding rows
-        Dt = Dinv.index_add(0, ub.idx2, -corr)   # = 1/(D_j + w^2/E2)
+        corr = d2 * _take(Dinv, ub.idx2) / g2    # exactly 0 on padding rows
+        Dt = _add_at(Dinv, ub.idx2, -corr)       # = 1/(D_j + w^2/E2)
         Ec = E1
     f32_path = (factor_dtype == torch.float32
                 or (A.dtype == torch.float32 and factor_dtype is None))
     f32 = torch.float32
+    diag = torch.diag_embed
     if ub is not None:
         if f32_path:
             M = scaled_syrk(A.to(f32), Dt.to(f32), Ec.to(f32))
         else:
-            M = (A * Dt[None, :]) @ A.mT + torch.diag(Ec)
+            M = (A * Dt.unsqueeze(-2)) @ A.mT + diag(Ec)
     elif f32_path:
         if use_primal_form(m, n, Q is not None):
             M = scaled_syrk(A.to(f32), (1.0 / Dc).to(f32), Ec.to(f32))
@@ -121,135 +182,175 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
             if Q is not None:
                 M = M + Q.to(M.dtype)
     elif use_primal_form(m, n, Q is not None):
-        M = (A / Dc[None, :]) @ A.mT
-        M = M + torch.diag(Ec)
+        M = (A / Dc.unsqueeze(-2)) @ A.mT
+        M = M + diag(Ec)
     else:
-        M = (A.mT / Ec[None, :]) @ A
-        M = M + torch.diag(Dc)
+        M = (A.mT / Ec.unsqueeze(-2)) @ A
+        M = M + diag(Dc)
         if Q is not None:
             M = M + Q
 
     # the scaling vector stays at DATA precision: solves multiply through
     # it, and truncating it would cap refinement at factor accuracy
-    d = torch.diagonal(M).to(A.dtype)
+    d = torch.diagonal(M, dim1=-2, dim2=-1).to(A.dtype)
     tiny = 1e-300 if A.dtype == torch.float64 else 1e-30
     s = torch.rsqrt(d.clamp_min(tiny))
     s_m = s.to(M.dtype)
-    Ms = M * s_m[:, None] * s_m[None, :]
+    Ms = M * s_m.unsqueeze(-1) * s_m.unsqueeze(-2)
     if factor_dtype is not None:
         Ms = Ms.to(factor_dtype)
     # factor the symmetric part, as jnp.linalg.cholesky does
     Ms = (Ms + Ms.mT) / 2
-    eye = torch.eye(Ms.shape[0], dtype=Ms.dtype, device=Ms.device)
+    eye = torch.eye(Ms.shape[-1], dtype=Ms.dtype, device=Ms.device)
     # the escalation ladder runs in the factor's precision, like the JAX
     # loop's carried scalar: floor, then x100 per retry, stop at >= 1e-2
-    dt = np.float64 if Ms.dtype == torch.float64 else np.float32
-    floor = dt(1.0e-14 if Ms.dtype == torch.float64 else 1.0e-7)
-    reg = dt(0.0) if reg0 is None else dt(float(reg0))
-    L, info, bad = _cholesky(Ms + float(reg) * eye)
-    while bad and reg < dt(1.0e-2):
-        reg = floor if reg == 0.0 else dt(reg * dt(100.0))
-        L, info, bad = _cholesky(Ms + float(reg) * eye)
-    if bad:
-        # a factor that never succeeded is all NaN, as the JAX factor is:
-        # the step's finite-iterate guard then stops the solve
-        L = torch.full_like(L, float("nan"))
-    return KKTFactor(L, s, g2, torch.full((), float(reg), dtype=Ms.dtype,
-                                          device=Ms.device))
+    lead = Ms.shape[:-2]
+    floor = 1.0e-14 if Ms.dtype == torch.float64 else 1.0e-7
+    reg = torch.as_tensor(0.0 if reg0 is None else reg0, dtype=Ms.dtype,
+                          device=Ms.device).expand(lead).clone()
+    L, bad = _cholesky(Ms + reg[..., None, None] * eye)
+    # retry lane by lane (a single LP is one lane): refactor the lanes
+    # whose factor failed, each at its own next level
+    L, bad, reg = L.reshape(-1, *L.shape[-2:]), bad.reshape(-1), \
+        reg.reshape(-1)
+    Mf = Ms.reshape(-1, *Ms.shape[-2:])
+    retry_ok = reg < 1.0e-2 if active is None else (
+        active.expand(lead).reshape(-1) & (reg < 1.0e-2))
+    while True:
+        retry = torch.nonzero(bad & retry_ok).squeeze(-1)
+        if retry.numel() == 0:
+            break
+        r = reg[retry]
+        r = torch.where(r == 0.0, torch.full_like(r, floor), r * 100.0)
+        Lr, badr = _cholesky(Mf[retry] + r[:, None, None] * eye)
+        reg[retry], L[retry], bad[retry] = r, Lr, badr
+        retry_ok[retry] = r < 1.0e-2
+    L, bad, reg = L.reshape(Ms.shape), bad.reshape(lead), reg.reshape(lead)
+    # a factor that never succeeded is all NaN, as the JAX factor is: the
+    # step's finite-iterate guard then stops that lane
+    L = torch.where(lanes(bad, L), float("nan"), L)
+    return KKTFactor(L, s, g2, reg)
 
 
 def _scaled_cho_solve(fac: KKTFactor, t):
-    """Solve M u = t through the scaled factor: u = S Ms^-1 S t; t is (m, k)."""
-    st = (fac.s[:, None] * t).to(fac.L.dtype)
-    u = torch.cholesky_solve(st, fac.L)
-    return fac.s[:, None] * u.to(fac.s.dtype)
+    """Solve M u = t through the scaled factor: u = S Ms^-1 S t; t is
+    (..., m, k)."""
+    s = fac.s.unsqueeze(-1)
+    u = torch.cholesky_solve((s * t).to(fac.L.dtype), fac.L)
+    return s * u.to(fac.s.dtype)
 
 
 def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
     """One forward/backward pass: K [dy; dx] = [ry; rx] via the factor.
-    ry: (m, k), rx: (n, k) column-stacked right-hand sides."""
-    m, n = A.shape
+    ry: (..., m, k), rx: (..., n, k) column-stacked right-hand sides."""
+    m, n = A.shape[-2:]
+    col = lambda v: v.unsqueeze(-1)
     if ub is not None:
         # Schur path: solve the m1 head, back out the diagonal tail
         m1 = m
-        Dinv = (1.0 / Dc)[:, None]
-        g2 = fac.g2[:, None]
-        w2 = ub.w2[:, None]
+        Dinv = col(1.0 / Dc)
+        g2 = col(fac.g2)
+        w2 = col(ub.w2)
         rxD = rx * Dinv
-        t2 = w2 * rxD[ub.idx2] - ry[m1:]
-        fold = rxD.index_add(0, ub.idx2, -w2 * Dinv[ub.idx2] * t2 / g2)
-        t1 = A @ fold - ry[:m1]
+        t2 = w2 * _take(rxD, ub.idx2) - ry[..., m1:, :]
+        fold = _add_at(rxD, ub.idx2, -w2 * _take(Dinv, ub.idx2) * t2 / g2)
+        t1 = A @ fold - ry[..., :m1, :]
         dy1 = _scaled_cho_solve(fac, t1)
         aty = A.mT @ dy1
-        dy2 = (t2 - w2 * Dinv[ub.idx2] * aty[ub.idx2]) / g2
-        dx = (rx - aty - torch.zeros_like(rx).index_add_(0, ub.idx2, w2 * dy2)
+        dy2 = (t2 - w2 * _take(Dinv, ub.idx2) * _take(aty, ub.idx2)) / g2
+        dx = (rx - aty - _add_at(torch.zeros_like(rx), ub.idx2, w2 * dy2)
               ) * Dinv
-        return torch.cat([dy1, dy2]), dx
+        return torch.cat([dy1, dy2], dim=-2), dx
     if use_primal_form(m, n, Q is not None):
-        t = A @ (rx / Dc[:, None]) - ry
+        t = A @ (rx / col(Dc)) - ry
         dy = _scaled_cho_solve(fac, t)
-        dx = (rx - A.mT @ dy) / Dc[:, None]
+        dx = (rx - A.mT @ dy) / col(Dc)
     else:
-        t = rx + A.mT @ (ry / Ec[:, None])
+        t = rx + A.mT @ (ry / col(Ec))
         dx = _scaled_cho_solve(fac, t)
-        dy = (A @ dx - ry) / Ec[:, None]
+        dy = (A @ dx - ry) / col(Ec)
     return dy, dx
 
 
 def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
               epsdiag=1.0e-14, refine_tol=1.0e-10, max_refine: int = 8,
-              compensated: bool = False, ub: UbTail | None = None):
+              compensated: bool = False, ub: UbTail | None = None,
+              active=None):
     """Solve [[-E, A], [A', D+Q]] [dy; dx] = [rhs_y; rhs_x] with refinement.
 
     Residuals use the TRUE (unclamped) E, D while the factor used the
-    clamped ones (ldlt.c:389-398).  rhs may be vectors or (dim, k).
+    clamped ones (ldlt.c:389-398).  rhs may be vectors (..., dim) or
+    stacks (..., dim, k).  Each lane refines until its own residual meets
+    the target or stops halving; lanes outside `active` do not refine.
     compensated=True forms the refinement residuals' products with
     quad.matvec2 (twice the working precision, the QuadPrec analogue), so
     refinement can go below the plain products' roundoff floor."""
     Ec = E.clamp_min(epsdiag)
     Dc = D.clamp_min(epsdiag)
-    single = rhs_y.dim() == 1
+    single = rhs_y.dim() == E.dim()
     if single:
-        rhs_y = rhs_y[:, None]
-        rhs_x = rhs_x[:, None]
-    base_mv = matvec2 if compensated else torch.matmul
+        rhs_y = rhs_y.unsqueeze(-1)
+        rhs_x = rhs_x.unsqueeze(-1)
+    base_mv = matvec2 if compensated else mv
     if ub is not None:
-        mv = lambda M, v: tail_matvec(M, ub, v, base_mv)
+        mv_ = lambda M, v: tail_matvec(M, ub, v, base_mv)
         mvT = lambda M, v: tail_rmatvec(M, ub, v, base_mv)
     else:
-        mv = base_mv
+        mv_ = base_mv
         mvT = lambda M, v: base_mv(M.mT, v)
+    col = lambda v: v.unsqueeze(-1)
 
     def residual(dy, dx):
-        r1 = rhs_y + E[:, None] * dy - mv(A, dx)
-        r2 = rhs_x - mvT(A, dy) - D[:, None] * dx
+        r1 = rhs_y + col(E) * dy - mv_(A, dx)
+        r2 = rhs_x - mvT(A, dy) - col(D) * dx
         if Q is not None:
             r2 = r2 - base_mv(Q, dx)
         return r1, r2
 
+    def amax(t):
+        return t.abs().amax(dim=(-2, -1))
+
     def max_resid(dy, dx):
         r1, r2 = residual(dy, dx)
-        return torch.maximum(r1.abs().max(), r2.abs().max())
+        return torch.maximum(amax(r1), amax(r2))
 
     dy, dx = _raw_solve(A, Ec, Dc, L, rhs_y, rhs_x, Q, ub=ub)
-    maxbc = torch.maximum(rhs_y.abs().max(), rhs_x.abs().max()) + 1.0
+    maxbc = torch.maximum(amax(rhs_y), amax(rhs_x)) + 1.0
     maxrs = max_resid(dy, dx)
-    oldmaxrs = float("inf")
+    # a lane that stopped refining stays stopped (its maxrs, oldmaxrs no
+    # longer change), so every refining lane has made the same number of
+    # passes, and one that never refined keeps oldmaxrs = inf
+    oldmaxrs = torch.full_like(maxrs, float("inf"))
     ey = ex = None
-    it = 0
-    while it < max_refine and bool(((maxrs > refine_tol * maxbc)
-                                    & (maxrs < 0.5 * oldmaxrs)).item()):
+    for _ in range(max_refine):
+        go = (maxrs > refine_tol * maxbc) & (maxrs < 0.5 * oldmaxrs)
+        if active is not None:
+            go = go & active
+        if not bool(go.any().item()):
+            break
         r1, r2 = residual(dy, dx)
-        ey, ex = _raw_solve(A, Ec, Dc, L, r1, r2, Q, ub=ub)
-        dy, dx = dy + ey, dx + ex
-        oldmaxrs, maxrs = maxrs, max_resid(dy, dx)
-        it += 1
+        cy, cx = _raw_solve(A, Ec, Dc, L, r1, r2, Q, ub=ub)
+        if go.dim():
+            # lanes that stopped refining keep their solution and their
+            # last correction (for the revert below)
+            g = lanes(go, dy)
+            cy, cx = torch.where(g, cy, 0.0), torch.where(g, cx, 0.0)
+            ey, ex = ((cy, cx) if ey is None else
+                      (torch.where(g, cy, ey), torch.where(g, cx, ex)))
+            oldmaxrs = torch.where(go, maxrs, oldmaxrs)
+            dy, dx = dy + cy, dx + cx
+            maxrs = torch.where(go, max_resid(dy, dx), maxrs)
+        else:
+            ey, ex, oldmaxrs = cy, cx, maxrs
+            dy, dx = dy + cy, dx + cx
+            maxrs = max_resid(dy, dx)
 
     # revert the last correction if it made the residual worse (ldlt.c:413-416)
-    if it > 0 and bool((maxrs > oldmaxrs).item()):
-        dy = dy - ey
-        dx = dx - ex
+    if ey is not None:
+        worse = lanes(maxrs > oldmaxrs, dy)
+        dy = torch.where(worse, dy - ey, dy)
+        dx = torch.where(worse, dx - ex, dx)
     if single:
-        dy = dy[:, 0]
-        dx = dx[:, 0]
+        dy = dy.squeeze(-1)
+        dx = dx.squeeze(-1)
     return dy, dx

@@ -111,7 +111,7 @@ def dd_div(x: DD, y: DD) -> DD:
 
 
 def _pad_pow2(t, dim: int):
-    """Zero-pad `dim` (0 or 1) of t up to a power of two."""
+    """Zero-pad dimension `dim` (>= 0) of t up to a power of two."""
     n = t.shape[dim]
     width = 1 << max(0, (n - 1).bit_length())
     if width == n:
@@ -121,7 +121,7 @@ def _pad_pow2(t, dim: int):
 
 
 def _tree(hi, lo, dim: int) -> DD:
-    """Pairwise dd_add reduction of (hi, lo) along dim (0 or 1), halving a
+    """Pairwise dd_add reduction of (hi, lo) along dim (>= 0), halving a
     power-of-two width until one entry is left (log depth)."""
     hi, lo = _pad_pow2(hi, dim), _pad_pow2(lo, dim)
     while hi.shape[dim] > 1:
@@ -140,16 +140,17 @@ def dd_sum(x: DD) -> DD:
 # --- compensated reductions (work in single words, DD internally) --------
 
 def dot2(a, b) -> torch.Tensor:
-    """Compensated dot product: as if computed in 2x working precision
-    then rounded (Ogita-Rump-Oishi Dot2, vectorized as a tree)."""
+    """Compensated dot product along the last dim (one per lane of a
+    batch): as if computed in 2x working precision then rounded
+    (Ogita-Rump-Oishi Dot2, vectorized as a tree)."""
     p, e = two_prod(a, b)
-    s = dd_sum(DD(p, e))
+    s = _tree(p, e, p.dim() - 1)
     return s.hi + s.lo
 
 
 def _matvec2_col(A, x) -> torch.Tensor:
-    p, e = two_prod(A, x[None, :])
-    s = _tree(p, e, 1)
+    p, e = two_prod(A, x.unsqueeze(-2))
+    s = _tree(p, e, p.dim() - 1)
     return s.hi + s.lo
 
 
@@ -158,17 +159,18 @@ def matvec2(A, x) -> torch.Tensor:
     precision, then rounded once (row-wise Dot2), the port's counterpart
     of the reference's QuadPrec residual kernels.
 
-    x is (n,) or (n, k).  A (n, k) right-hand side is done one column at
-    a time, what the JAX package's vmap over columns computes, so the
-    working memory is that of one column: the product and error planes
+    A is (..., m, n); x is (..., n) or (..., n, k).  A (..., n, k)
+    right-hand side is done one column at a time, what the JAX package's
+    vmap over columns computes, so the working memory is that of one
+    column: the product and error planes
     and the split's temporaries, about six (rows, n) planes at peak.  At
     the smoke LP's f64 head (2560 x 4096, 84 MB a plane) that is about
     0.5 GB; a (rows, n, k) broadcast would take k times as much.
     """
-    if x.dim() == 1:
+    if x.dim() < A.dim():
         return _matvec2_col(A, x)
-    return torch.stack([_matvec2_col(A, x[:, j]) for j in range(x.shape[1])],
-                       dim=1)
+    return torch.stack([_matvec2_col(A, x[..., j])
+                        for j in range(x.shape[-1])], dim=-1)
 
 
 def sum2(a) -> torch.Tensor:

@@ -1,0 +1,288 @@
+"""Instance batching over padded size classes, the port of
+vanderbei_tpu/parallel/batch.py.
+
+Problems are grouped into size classes (padded-dim buckets), each class
+canonicalized with benign padding (core/canonicalize.py) and stacked into
+(B, M, N) tensors, then solved by ONE batch-first loop over the whole
+class: the solvers' per-lane masks freeze a lane once it is decided, and
+the loop runs until every lane has stopped.  In the f32 sprint the normal
+matrices of all B lanes are formed by one launch of the scaled-SYRK
+kernel per iteration.
+
+The batched IPMs run the single-LP path's precision ladder: stage 1 solves
+every lane in f32 until its mu (hsd) or duality gap (intpt) crosses the
+stage boundary, the loop running until every lane has paused; the states
+are cast to f64, a lane whose sprint diverged (non-finite, or stopped
+SUBOPTIMAL by the finite-iterate guard) restarts clean, and stage 2
+polishes every lane in f64 to the reference tolerance (hsd.c:24).
+
+The stacked classes are numpy arrays; the solvers move them to the device
+with torch.from_numpy(...).to(device).  Every solver takes `device`,
+"cuda" by default, and raises when CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.canonicalize import canonicalize
+from ..core.config import SolverConfig
+from ..core.status import Status
+from ..models import hsd as _hsd
+from ..models import intpt as _intpt
+from ..models import simplex as _simplex
+from ..models.registry import (_hsd_structure_applies,
+                               _hsd_structured_operands, resolve_device)
+from ..ops.kkt import UbTail, where_lanes
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((max(x, 1) + mult - 1) // mult) * mult
+
+
+def size_class(canon_m: int, n: int, granularity: int = 128) -> tuple:
+    """Bucket key: dims rounded up to the granularity."""
+    return (_round_up(canon_m, granularity), _round_up(n, granularity))
+
+
+def class_key(canon, granularity: int, use_ub_structure: bool) -> tuple:
+    """The class a CanonLP buckets into: ("s", M1, N, K) for a structured
+    problem (head dims and tail count, rounded up), ("d", M, N) for the
+    rest, or the legacy dense-only key (M, N) without use_ub_structure."""
+    ru = lambda d: _round_up(d, granularity)
+    if use_ub_structure and _hsd_structure_applies(canon):
+        k = len(canon.ub_cols)
+        return ("s", ru(canon.m - k), ru(canon.n), ru(k))
+    if use_ub_structure:
+        return ("d", ru(canon.m), ru(canon.n))
+    return (ru(canon.m), ru(canon.n))
+
+
+def group_by_class(lps, granularity: int = 128,
+                   use_ub_structure: bool = False, scale: str = "none",
+                   free_vars: str = "reject"):
+    """Canonicalize each LP and bucket by padded shape (class_key).
+
+    Returns ({key: [(index, CanonLP), ...]} over the input order, and
+    [(index, status)] of the LPs whose canonicalization aborts, e.g. on a
+    free variable under free_vars="reject")."""
+    classes: dict = {}
+    aborted = []
+    for idx, lp in enumerate(lps):
+        canon = canonicalize(lp, pad_to=1, scale=scale, free_vars=free_vars)
+        if canon.status != int(Status.RUNNING):
+            aborted.append((idx, canon.status))
+            continue
+        key = class_key(canon, granularity, use_ub_structure)
+        classes.setdefault(key, []).append((idx, canon))
+    return classes, aborted
+
+
+def stack_class(entries, mp: int, np_: int, dtype=np.float64):
+    """Stack a size class's canonical problems into (B, mp, np_) arrays."""
+    B = len(entries)
+    A = np.zeros((B, mp, np_), dtype=dtype)
+    b = np.ones((B, mp), dtype=dtype)
+    c = np.zeros((B, np_), dtype=dtype)
+    for k, (_, canon) in enumerate(entries):
+        m, n = canon.m, canon.n
+        A[k, :m, :n] = canon.A[:m, :n]
+        b[k, :m] = canon.b[:m]
+        c[k, :n] = canon.c[:n]
+    return A, b, c
+
+
+def stack_class_structured(entries, M1: int, N: int, K: int,
+                           dtype=np.float64):
+    """Stack a STRUCTURED size class: head A1 (B, M1, N), b (B, M1+K),
+    c (B, N) plus the batched UbTail (idx2, w2 each (B, K); w2 = 0 marks
+    padding tail rows)."""
+    B = len(entries)
+    A1 = np.zeros((B, M1, N), dtype=dtype)
+    b = np.ones((B, M1 + K), dtype=dtype)
+    c = np.zeros((B, N), dtype=dtype)
+    idx2 = np.zeros((B, K), dtype=np.int32)
+    w2 = np.zeros((B, K), dtype=dtype)
+    for j, (_, canon) in enumerate(entries):
+        s = _hsd_structured_operands(canon, M1=M1, K=K, N=N)
+        assert s is not None, "structured class entry lost its structure"
+        A1[j] = s["A1"]
+        b[j] = s["b"]
+        c[j] = s["c"]
+        idx2[j] = s["idx2"]
+        w2[j] = s["w2"]
+    return A1, b, c, UbTail(idx2, w2)
+
+
+def _tensor(a, device, dtype=torch.float64):
+    if isinstance(a, torch.Tensor):
+        return a.to(device, dtype)
+    return torch.from_numpy(np.asarray(a)).to(device, dtype)
+
+
+def _ub(ub, device, dtype):
+    if ub is None:
+        return None
+    return UbTail(_tensor(ub.idx2, device, torch.int64),
+                  _tensor(ub.w2, device, dtype))
+
+
+def _timed(stages, label, run, state):
+    """Run one stage; append its per-lane iterations and wall seconds."""
+    t0 = time.perf_counter()
+    it0 = state.iter
+    out, _ = run(state)
+    if stages is not None:
+        stages.append(dict(precision=label,
+                           iterations=(out.iter - it0).cpu().numpy(),
+                           seconds=time.perf_counter() - t0))
+    return out
+
+
+def solve_batch_hsd(A, b, c, *,
+                    ub: UbTail | None = None,
+                    max_iter: int = 200,
+                    eps: float = 1.0e-12,
+                    step_factor: float = 0.95,
+                    long_step: bool = False,
+                    beta: float = 0.80,
+                    epsdiag: float = 1.0e-14,
+                    refine_tol: float = 1.0e-10,
+                    max_refine: int = 4,
+                    precision: str = "mixed",
+                    corrector: str = "mehrotra",
+                    compensated: bool = False,
+                    stage1_mu: float = 1.0e-4,
+                    device="cuda",
+                    stages: list | None = None):
+    """Two-stage batched HSD over a stacked class A (B, mp, np_).
+
+    ub: batched UbTail (idx2, w2 each (B, K)); A then holds only head rows
+    and b spans (B, mp + K), and each lane takes the Schur-eliminated
+    structured KKT path (stack_class_structured builds these).
+    precision: "mixed" (f32 sprint, f64 polish), "f32factor" (f64 data,
+    f32 factor) or "f64"; compensated applies to the f64 stage.  stages,
+    if given, receives one record per stage (per-lane iterations, wall
+    seconds).
+
+    Returns (status, x, y, w, z, iterations), each batched over B, on
+    `device`."""
+    device = resolve_device(device)
+    f64 = torch.float64
+    A, b, c = (_tensor(v, device) for v in (A, b, c))
+    extra = 0 if ub is None else np.shape(ub.idx2)[-1]
+    knobs = dict(max_iter=max_iter, eps=eps, step_factor=step_factor,
+                 beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
+                 long_step=long_step, max_refine=max_refine,
+                 corrector=corrector)
+
+    def run(A_, b_, c_, ub_, pause, factor_dtype, knobs_, comp):
+        return lambda st: _hsd._hsd_loop(
+            A_, b_, c_, 0.0, st, pause_mu=pause, factor_dtype=factor_dtype,
+            compensated=comp, ub=ub_, **knobs_)
+
+    factor_dtype = None
+    if precision == "mixed":
+        # the f32 sprint can't hit f64 refinement targets; relax them there
+        knobs32 = dict(knobs, epsdiag=max(epsdiag, 1e-8),
+                       refine_tol=max(refine_tol, 1e-4))
+        f32 = torch.float32
+        A32 = A.to(f32)
+        st = _timed(stages, "f32", run(A32, b.to(f32), c.to(f32),
+                                       _ub(ub, device, f32), stage1_mu,
+                                       None, knobs32, False),
+                    _hsd.init_state(A32, extra_rows=extra))
+        st = _hsd.cast_state(st, f64)
+        # lanes that diverged in f32 restart clean in f64 (the finiteness
+        # guard stops such lanes SUBOPTIMAL at the last finite iterate)
+        ok = (torch.isfinite(st.x).all(-1) & torch.isfinite(st.phi)
+              & (st.status != int(Status.SUBOPTIMAL)))
+        st = where_lanes(ok, st, _hsd.init_state(A, extra_rows=extra))
+    else:
+        st = _hsd.init_state(A, extra_rows=extra)
+        if precision == "f32factor":
+            factor_dtype = torch.float32
+    label = "f64" if factor_dtype is None else "f64-data/f32-factor"
+    out = _timed(stages, label, run(A, b, c, _ub(ub, device, f64), 0.0,
+                                    factor_dtype, knobs, compensated), st)
+    return _hsd.finish_state(out, max_iter)
+
+
+def solve_batch_intpt(A, b, c, *,
+                      max_iter: int = 200,
+                      eps: float = 1.0e-6,
+                      delta: float = 0.02,
+                      step_factor: float = 0.9,
+                      epsdiag: float = 1.0e-14,
+                      refine_tol: float = 1.0e-10,
+                      max_refine: int = 4,
+                      precision: str = "mixed",
+                      stage1_gap: float = 1.0e-2,
+                      gap_floor: float = 1.0e-2,
+                      div_detect: bool = True,
+                      device="cuda",
+                      stages: list | None = None):
+    """Two-stage batched path-following IPM over a stacked class (no Q).
+
+    Stage 1 runs every lane in f32 until its duality gap crosses
+    stage1_gap * (mp + np_), with the divergence certificate off; stage 2
+    resumes in f64 to the reference tolerance (intpt.c:30), with the
+    certificate as div_detect says (the JAX package's batched path always
+    has it on).  m > n classes take the dual form, whose f32 normal
+    matrices the kernel forms from the strided view A' (B, np_, mp).
+
+    Returns (status, x, y, w, z, iterations), each batched over B."""
+    device = resolve_device(device)
+    A, b, c = (_tensor(v, device) for v in (A, b, c))
+    B, mp, np_ = A.shape
+
+    def run(A_, b_, c_, pause, eps_d, ref_t, dd):
+        return lambda st: _intpt._intpt_loop(
+            A_, b_, c_, 0.0, None, st, max_iter=max_iter, eps=eps,
+            delta=delta, step_factor=step_factor, epsdiag=eps_d,
+            refine_tol=ref_t, pause_gap=pause, div_detect=dd,
+            gap_floor=gap_floor, max_refine=max_refine)
+
+    if precision == "mixed":
+        f32 = torch.float32
+        A32 = A.to(f32)
+        st = _timed(stages, "f32",
+                    run(A32, b.to(f32), c.to(f32), stage1_gap * (mp + np_),
+                        max(epsdiag, 1e-8), max(refine_tol, 1e-4), False),
+                    _intpt.init_state(A32))
+        st = _intpt.cast_state(st, torch.float64)
+        ok = (torch.isfinite(st.x).all(-1)
+              & (st.status != int(Status.SUBOPTIMAL)))
+        st = where_lanes(ok, st, _intpt.init_state(A))
+    else:
+        st = _intpt.init_state(A)
+    out = _timed(stages, "f64",
+                 run(A, b, c, 0.0, epsdiag, refine_tol, div_detect), st)
+    return _intpt.finish_state(out, max_iter)
+
+
+def solve_batch_pd(A, b, c, *, max_iter: int = 20000,
+                   refresh_every: int = 64, seed: int = 0, draws=None,
+                   device="cuda"):
+    """Batched parametric self-dual simplex over a stacked class: every
+    lane pivots on [A | I] at once; finished lanes keep their state until
+    the slowest converges.  draws: per-lane (u_x (B, mp), u_y (B, np_)),
+    e.g. the JAX package's per-lane key draws; by default
+    simplex.perturbation_draws of the seed.
+
+    Returns (status, x, y, w, z, pivots), each batched over B."""
+    device = resolve_device(device)
+    A, b, c = (_tensor(v, device) for v in (A, b, c))
+    B, mp, np_ = A.shape
+    eye = torch.eye(mp, dtype=A.dtype, device=device).expand(B, mp, mp)
+    Afull = torch.cat([A, eye], dim=-1)
+    cfull = torch.cat([c, torch.zeros(B, mp, dtype=A.dtype, device=device)],
+                      dim=-1)
+    u_x, u_y = (draws if draws is not None else _simplex.perturbation_draws(
+        SolverConfig(seed=seed), mp, np_, lanes=(B,)))
+    return _simplex._pd_loop(Afull, b, cfull, _tensor(u_x, device),
+                             _tensor(u_y, device), max_iter=max_iter,
+                             refresh_every=refresh_every)

@@ -2,16 +2,16 @@
 alternating processes on the card.
 
     python3 vanderbei_tpu_torch/tools/ab_solve.py MPS TREE_A TREE_B \\
-        [--pairs 10] [--reps 5]
+        [--pairs 10] [--reps 5] [--method hsd]
 
 Pair i runs one process per tree, A then B for even i and B then A for odd
 i, so neither tree always runs first.  Each process imports
-vanderbei_tpu_torch from its tree, solves MPS with the default method
-reps + 1 times and keeps the warm solves' solve_time_s (the first solve,
-which carries the kernel build and the cuBLAS/cuSOLVER set-up, is left
-out).  Prints one JSON line per
-process, then a JSON summary: per tree the median of every warm solve and
-of the process medians, and for each pair B's process median over A's.
+vanderbei_tpu_torch from its tree, solves MPS with --method (hsd by
+default) reps + 1 times and keeps the warm solves' solve_time_s (the first
+solve, which carries the kernel build and the cuBLAS/cuSOLVER set-up, is
+left out).  Prints one JSON line per process, then a JSON summary: per
+tree the median of every warm solve and of the process medians, and for
+each pair B's process median over A's.
 """
 
 import argparse
@@ -23,7 +23,7 @@ import sys
 import time
 
 
-def worker(tree, mps, reps):
+def worker(tree, mps, reps, method):
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
@@ -35,7 +35,7 @@ def worker(tree, mps, reps):
     for i in range(reps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol = vtt.solve(lp, device="cuda")
+        sol = vtt.solve(lp, method=method, device="cuda")
         torch.cuda.synchronize()
         if i:
             times.append(sol.solve_time_s)
@@ -54,12 +54,13 @@ def main(argv=None) -> int:
     p.add_argument("tree_b")
     p.add_argument("--pairs", type=int, default=10)
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--method", default="hsd")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     mps = os.path.abspath(args.mps)
     a, b = os.path.abspath(args.tree_a), os.path.abspath(args.tree_b)
     if args.worker:
-        return worker(a, mps, args.reps)
+        return worker(a, mps, args.reps, args.method)
 
     runs = {a: [], b: []}
     ratios = []
@@ -68,7 +69,8 @@ def main(argv=None) -> int:
         for tree in ((a, b) if i % 2 == 0 else (b, a)):
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), mps, tree, tree,
-                 "--reps", str(args.reps), "--worker"],
+                 "--reps", str(args.reps), "--method", args.method,
+                 "--worker"],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -81,7 +83,8 @@ def main(argv=None) -> int:
         ratios.append(pair[b] / pair[a])
     outcomes = {tuple(o) for rs in runs.values() for r in rs
                 for o in r["status_iterations"]}
-    summary = {"mps": mps, "pairs": args.pairs, "reps": args.reps,
+    summary = {"mps": mps, "method": args.method, "pairs": args.pairs,
+               "reps": args.reps,
                "status_iterations": sorted(outcomes)}
     for key, tree in (("a", a), ("b", b)):
         summary[key] = {

@@ -4,9 +4,11 @@ save_solution / load_solution round-trip a Solution through an npz (the
 machine-readable counterpart of the .out file).  save_state / load_state
 persist an HsdState or an IntptState as an npz with the field names of
 vanderbei_tpu.utils.checkpoint, so either package can resume the other's
-paused solve.  operands_from_canon moves a canonical LP (or the structured
-head/tail split) to the device: a plain torch.from_numpy(...).to(device,
-dtype), the counterpart of vanderbei_tpu/ops/assemble.py.
+paused solve; a batched state (every field with a leading lane dim, as
+the JAX package's vmapped solves carry it) crosses the same way.
+operands_from_canon moves a canonical LP (or the structured head/tail
+split) to the device: a plain torch.from_numpy(...).to(device, dtype),
+the counterpart of vanderbei_tpu/ops/assemble.py.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ def state_to_numpy(state) -> dict:
 
 
 def state_from_numpy(fields, device, dtype=torch.float64):
-    """Build a solver state from numpy arrays (e.g. a JAX state's fields):
-    an HsdState when the fields hold phi, else an IntptState; float fields
-    in `dtype`, iter/status/stall as int64, all on `device`."""
+    """Build a solver state from numpy arrays (e.g. a JAX state's fields,
+    single or batched): an HsdState when the fields hold phi, else an
+    IntptState; float fields in `dtype`, iter/status/stall as int64, all
+    on `device`, shapes as given."""
     state_cls = HsdState if "phi" in fields else IntptState
     return state_cls(**{
         k: torch.as_tensor(np.array(fields[k]), device=device,
