@@ -16,11 +16,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
    transposed views), intpt's dual-form A' (4096, 6656), the QP's
    dual-form A' (1024, 2048) and the two batched solves' launches, the
    hsd class (16, 1024, 1536) and intpt's transposed class A'
-   (8, 1024, 1536); kernel and plain times, the kernel's TFLOP/s of
-   lower-tile work and its bound (see bound()), at (2560, 4096) (TMA
-   copies), its transposed view (TMA), (1000, 1537) (cp.async copies),
-   the dual-form A' of intpt and of the QP, and the two batched classes
-   (all TMA).
+   (8, 1024, 1536), and the mesh phases' column shards, the smoke LP's
+   head on one of 2 model ranks (2560, 2048) and the phase-10 class on
+   one rank of a (2, 2) mesh (8, 1024, 768); kernel and plain times, the
+   kernel's TFLOP/s of lower-tile work and its bound (see bound()), at
+   (2560, 4096) (TMA copies), its transposed view (TMA), (1000, 1537)
+   (cp.async copies), the dual-form A' of intpt and of the QP, the two
+   batched classes and the two shards (all TMA).
 4. solve: a seeded 2000 x 4000 bounded LP (200 equality rows, 2% dense),
    written to MPS and solved through the CLI on the card; it must be
    OPTIMAL within 1e-8 of scipy's HiGHS on the LP read back from the file,
@@ -58,22 +60,44 @@ Phases, one line each; any failure exits non-zero and prints no result:
 12. batch-pd: 4 seeded LPs (300 + 10j) x (600 + 20j) through
    solve_batch_pd: every lane OPTIMAL within 1e-8 of HiGHS; pivots per
    lane and pivots/s.
-13. every (shape, layout) the solves of phases 4-6 and 10-11 handed the
-   kernel is one that phase 3 held against the plain version, or the run
-   fails; then the kernels' JSON line (launches split by path: hsd,
-   intpt, qp, batch-hsd, batch-intpt), the card line, and
+13. mesh-tp: phase 4's MPS solved tensor-parallel, solve(lp,
+   mesh=make_mesh(2, model_parallel=2)) on 2 ranks sharing the card
+   (gloo on CUDA tensors, run_ranks): OPTIMAL with the same status,
+   iterations and objective on both ranks, within 1e-9 of phase 4's
+   objective and 1e-8 of HiGHS, iterations within 2 of phase 4's, and on
+   each rank one kernel launch per f32 iteration, all at its shard
+   (2560, 2048); then a warm solve and one under torch.profiler (the
+   rank's device-busy share); all-reduces, bytes and the share of the
+   wall in all-reduce calls per iteration; beside them the wall of one
+   solve() of the LP on the card alone, cold and warm.
+14. mesh-nccl: the same solve in this process on a world of 1 under
+   nccl: equal to phase 4 to 1e-12 relative, in as many iterations.
+15. mesh-batch: phase 10's class through shard_batch and
+   solve_batch_hsd(mesh=) on a (2, 2) mesh, 4 ranks sharing the card
+   (gloo): every lane OPTIMAL within 1e-8 of HiGHS, each lane's
+   iterations within 2 of phase 10's, each rank one launch per f32
+   iteration at (8, 1024, 768).
+16. every (shape, layout) the solves of phases 4-6, 10-11 and 13-15
+   handed the kernel (the ranks' too) is one that phase 3 held against
+   the plain version, or the run fails; then the kernels' JSON line
+   (launches split by path: hsd, intpt, qp, batch-hsd, batch-intpt,
+   mesh-tp, mesh-nccl, mesh-batch), the card line, and
    {"ok": true, "device": {...}} last.
+
+A rank that fails or outlasts its limit fails the script.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # tolerances: |M - M_f64| <= BOUND * (|X| diag|s| |X|' + diag|e|) entrywise
@@ -87,6 +111,10 @@ RTOL, ATOL = 2e-5, 2e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_3XTF32_FLOPS = 495e12 / 3
 OBJ_RTOL = 1e-8
+MESH_RTOL = 1e-9           # a tensor-parallel solve against phase 4's
+NCCL_RTOL = 1e-12          # ... on a world of 1
+MESH_ITERS = 2             # two shards reassociate the f32 sprint's sums
+RANK_TIMEOUT_S = 300
 INTPT_RTOL = 1e-6          # intpt stops at ipm_eps = 1e-6 (core/config.py)
 FEAS_RTOL = 1e-6
 X_RTOL = 1e-3              # the QP's card and CPU points (see check_qp)
@@ -144,7 +172,11 @@ def check_kernel(syrk, torch):
              # the batched solves (phases 10, 11): the hsd class's UbTail
              # heads and the intpt class's dual-form A'
              ("batch-hsd", (16, 1024, 1536), {}),
-             ("batch-intpt", (8, 1024, 1536), {"transposed": True})]
+             ("batch-intpt", (8, 1024, 1536), {"transposed": True}),
+             # the mesh phases (13, 15): a rank's column shard of the
+             # smoke LP's head and of the phase-10 class
+             ("tp-shard", (2560, 2048), {}),
+             ("dp-tp-shard", (8, 1024, 768), {})]
     head_err = None
     checked = set()
     for label, shape, kw in cases:
@@ -196,7 +228,9 @@ def check_kernel(syrk, torch):
             ("dual-form", (4096, 6656), {"transposed": True}, "tma"),
             ("qp-dual-form", (1024, 2048), {"transposed": True}, "tma"),
             ("batch-hsd", (16, 1024, 1536), {}, "tma"),
-            ("batch-intpt", (8, 1024, 1536), {"transposed": True}, "tma")):
+            ("batch-intpt", (8, 1024, 1536), {"transposed": True}, "tma"),
+            ("tp-shard", (2560, 2048), {}, "tma"),
+            ("dp-tp-shard", (8, 1024, 768), {}, "tma")):
         X, s, e = inputs(shape, **kw)
         if syrk.route(X) != want:
             fail(f"{label} {tuple(X.shape)} took {syrk.route(X)}, not {want}")
@@ -283,7 +317,7 @@ def highs_objective(lp):
 
 def solve_end_to_end(syrk, torch, m=2000, n=4000, device="cuda"):
     """Phase 4: returns (the kernel's launch count in the solve, the HiGHS
-    objective, the MPS path)."""
+    objective, the MPS path, the objective, the iterations)."""
     from vanderbei_tpu_torch import cli, read_mps, write_lp
     from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
     work = os.path.join(syrk.BUILD_DIR, "smoke")
@@ -330,7 +364,7 @@ def solve_end_to_end(syrk, torch, m=2000, n=4000, device="cuda"):
           flush=True)
     if not rel <= OBJ_RTOL:
         fail(f"objective {obj!r} is {rel:.3e} from HiGHS {ref!r}")
-    return launches, ref, mps
+    return launches, ref, mps, obj, iters
 
 
 def run_cli(args):
@@ -504,7 +538,8 @@ def check_batch(syrk, torch, card, work, method, dims, granularity=512,
     solver of `method`, as evaluate.run_sweep_batched groups and stacks
     them; every lane must be OPTIMAL from the batched solve itself (no
     per-problem rescue) and within rtol of HiGHS on its read-back LP.
-    Returns the kernel's launch count in the solve."""
+    Returns the kernel's launch count in the solve, each lane's
+    iterations (pivots) and the HiGHS objectives."""
     import numpy as np
     from vanderbei_tpu_torch import SolverConfig
     from vanderbei_tpu_torch.parallel import batch as pb
@@ -579,7 +614,260 @@ def check_batch(syrk, torch, card, work, method, dims, granularity=512,
         layout = "k-contiguous" if method == "hsd" else "transposed"
         if any(not k.endswith("/" + layout) for k in routes):
             fail(f"batch-{method}: kernel off the {layout} layout: {routes}")
+    return launches, iters, refs
+
+
+def hsd_class(work, lanes=16):
+    """Phase 10's class, rebuilt from its MPS files as check_batch builds
+    it: (key, entries, (A, b, c, ub))."""
+    from vanderbei_tpu_torch import SolverConfig, read_mps
+    from vanderbei_tpu_torch.parallel import batch as pb
+    cfg = SolverConfig()
+    lps = [read_mps(os.path.join(work, f"bhsd{j}.mps")) for j in range(lanes)]
+    classes, _ = pb.group_by_class(lps, granularity=512, use_ub_structure=True,
+                                   scale=cfg.scale, free_vars=cfg.free_vars)
+    (key, entries), = classes.items()
+    return key, entries, pb.stack_class_structured(entries, *key[1:])
+
+
+def rank_runs(torch, device, run, summarize):
+    """On one rank of a mesh phase: run() three times, cold (the checked
+    run), warm, and warm under torch.profiler.  Returns one record per
+    run: summarize(run()), its seconds, its kernel launches by (shape,
+    layout), and for the profiled run the device-busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from vanderbei_tpu_torch.ops import syrk
+    from vanderbei_tpu_torch.utils.profiling import busy_share
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                           else [])
+    runs = []
+    for label in ("cold", "warm", "profiled"):
+        syrk.reset_counts()
+        sync()
+        prof = (profile(activities=activities, acc_events=True)
+                if label == "profiled" else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()
+            out = run()
+            sync()
+            secs = time.perf_counter() - t0
+        rec = summarize(out)
+        rec.update(label=label, seconds=secs,
+                   launch_shapes=dict(syrk.launch_shapes))
+        if label == "profiled":
+            rec["busy"] = busy_share(prof, secs)
+        runs.append(rec)
+    return runs
+
+
+def mesh_tp_rank(rank, world, device, mps):
+    """Phase 13 on one rank: the smoke LP tensor-parallel over `world`
+    model ranks."""
+    import torch
+    import vanderbei_tpu_torch as vtt
+    from vanderbei_tpu_torch.parallel.mesh import make_mesh
+    lp = vtt.read_mps(mps)
+    mesh = make_mesh(world, model_parallel=world, device_type=device.type)
+    return rank_runs(
+        torch, device, lambda: vtt.solve(lp, device=device, mesh=mesh),
+        lambda sol: dict(status=sol.status, iterations=sol.iterations,
+                         obj=sol.primal_obj, stages=sol.stages))
+
+
+def mesh_batch_rank(rank, world, device, work):
+    """Phase 15 on one rank of a (world / 2, 2) mesh: its block of phase
+    10's class, solved and gathered."""
+    import torch
+    from vanderbei_tpu_torch import SolverConfig
+    from vanderbei_tpu_torch.parallel import batch as pb
+    from vanderbei_tpu_torch.parallel.mesh import make_mesh
+    _, _, (A, b, c, ub) = hsd_class(work)
+    mesh = make_mesh(world, model_parallel=2, device_type=device.type)
+    A_k, b_k, c_k, i_k, w_k = pb.shard_batch([A, b, c, ub.idx2, ub.w2], mesh,
+                                             model_axis_dims=(2, None, 1))
+    corrector = SolverConfig().hsd_corrector
+
+    def run():
+        stages = []
+        out = pb.solve_batch_hsd(A_k, b_k, c_k, ub=pb.UbTail(i_k, w_k),
+                                 corrector=corrector, device=device,
+                                 stages=stages, mesh=mesh)
+        return pb.gather_lanes(out, mesh), stages
+
+    def summarize(res):
+        (st, x, _, _, _, it), stages = res
+        return dict(status=st.cpu().numpy(), x=x.cpu().numpy(),
+                    iters=it.cpu().numpy(), stages=stages)
+    return rank_runs(torch, device, run, summarize)
+
+
+def collectives(stages, iterations):
+    """A solve's all-reduces and bytes per iteration, and the share of its
+    stages' wall spent in all-reduce calls (ColumnShards.counts)."""
+    calls = sum(s["all_reduces"] for s in stages)
+    nbytes = sum(s["all_reduce_bytes"] for s in stages)
+    share = (sum(s["all_reduce_seconds"] for s in stages)
+             / sum(s["seconds"] for s in stages))
+    return (f"{calls / iterations:.1f} all-reduces and "
+            f"{nbytes / iterations / 1e6:.3f} MB per iteration, "
+            f"{100 * share:.1f} % of the stages' wall in all-reduce calls")
+
+
+def check_mesh_tp(card, mps, ref, obj4, it4, seen, world=2, device="cuda:0",
+                  shard=((2560, 2048), "k-contiguous")):
+    """Phase 13: returns the kernel's launches, summed over the ranks, in
+    the checked (cold) solve."""
+    from vanderbei_tpu_torch.parallel.distributed import run_ranks
+    t0 = time.perf_counter()
+    results = run_ranks(mesh_tp_rank, world, "gloo", device,
+                        timeout_s=RANK_TIMEOUT_S, args=(mps,))
+    t_all = time.perf_counter() - t0
+    runs = results
+    for rank_runs_ in runs:
+        for rec in rank_runs_:
+            seen.update(rec["launch_shapes"])
+    # the same solve() call on the card alone, cold then warm, for its wall
+    import torch
+    import vanderbei_tpu_torch as vtt
+    lp = vtt.read_mps(mps)
+    single = []
+    for _ in range(2):
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vtt.solve(lp, device=device)
+        single.append(time.perf_counter() - t1)
+    cold = [r[0] for r in runs]
+    if len({(c["status"], c["iterations"], c["obj"]) for c in cold}) != 1:
+        fail(f"mesh-tp: the ranks disagree: "
+             f"{[(c['status'], c['iterations'], c['obj']) for c in cold]}")
+    sol = cold[0]
+    obj, iters = sol["obj"], sol["iterations"]
+    rel4 = abs(obj - obj4) / max(1.0, abs(obj4))
+    rel = abs(obj - ref) / max(1.0, abs(ref))
+    f32 = sum(s["iterations"] for s in sol["stages"]
+              if s["precision"] == "f32")
+    traffic = collectives(sol["stages"], iters)
+    stage_rows = [(s["precision"], s["iterations"], s["seconds"])
+                  for s in sol["stages"]]
+    walls = ", ".join(f"{r['label']} {r['seconds']:.3f} s" for r in runs[0])
+    busy = ", ".join(f"rank {k} {100 * r[2]['busy']:.1f} %"
+                     for k, r in enumerate(runs))
+    print(f"mesh-tp on {card}: {world} ranks on {device} (gloo), status "
+          f"{sol['status']} on every rank, obj {obj!r} vs phase 4 "
+          f"{obj4!r} rel {rel4:.3e}, vs HiGHS rel {rel:.3e}; {iters} "
+          f"iterations (phase 4: {it4}) [{stage_text(stage_rows)}]; "
+          f"kernel launches by rank {[c['launch_shapes'] for c in cold]}; "
+          f"wall of rank 0: {walls} (one solve() on the card alone: cold "
+          f"{single[0]:.3f} s, warm {single[1]:.3f} s); device busy in the "
+          f"profiled solve: {busy}; {traffic}; spawn to end {t_all:.2f} s",
+          flush=True)
+    if sol["status"] != 0:
+        fail(f"mesh-tp: status {sol['status']}")
+    if not (rel4 <= MESH_RTOL and rel <= OBJ_RTOL):
+        fail(f"mesh-tp: objective {obj!r} is {rel4:.3e} from phase 4's and "
+             f"{rel:.3e} from HiGHS")
+    if abs(iters - it4) > MESH_ITERS:
+        fail(f"mesh-tp: {iters} iterations against phase 4's {it4}")
+    if f32 <= 0 or any(c["launch_shapes"] != {shard: f32} for c in cold):
+        fail(f"mesh-tp: not one launch at {shard} per f32 iteration ({f32})"
+             f" on each rank: {[c['launch_shapes'] for c in cold]}")
+    return sum(c["launch_shapes"][shard] for c in cold)
+
+
+def check_mesh_nccl(syrk, torch, mps, obj4, it4, device="cuda:0",
+                    backend="nccl"):
+    """Phase 14: returns the kernel's launch count in the solve."""
+    import torch.distributed as dist
+    import vanderbei_tpu_torch as vtt
+    from vanderbei_tpu_torch.parallel.mesh import make_mesh
+    lp = vtt.read_mps(mps)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "store"),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+        try:
+            mesh = make_mesh(1, model_parallel=1,
+                             device_type=torch.device(device).type)
+            syrk.reset_counts()
+            t0 = time.perf_counter()
+            sol = vtt.solve(lp, device=device, mesh=mesh)
+            secs = time.perf_counter() - t0
+            launches = syrk.launch_count()
+            backend = dist.get_backend(mesh.get_group("model"))
+        finally:
+            dist.destroy_process_group()
+    rel = abs(sol.primal_obj - obj4) / max(1.0, abs(obj4))
+    print(f"mesh-nccl: world 1 ({backend}), status {sol.status}, obj "
+          f"{sol.primal_obj!r} vs phase 4 rel {rel:.3e}; {sol.iterations} "
+          f"iterations (phase 4: {it4}); kernel launches {launches}; "
+          f"{secs:.3f} s; {collectives(sol.stages, sol.iterations)}",
+          flush=True)
+    if sol.status != 0 or sol.iterations != it4 or not rel <= NCCL_RTOL:
+        fail("mesh-nccl: not phase 4's solve")
+    if launches <= 0:
+        fail("mesh-nccl launched the scaled_syrk kernel 0 times")
     return launches
+
+
+def check_mesh_batch(card, work, refs, lane_iters, seen, world=4,
+                     device="cuda:0",
+                     shard=((8, 1024, 768), "k-contiguous")):
+    """Phase 15: returns the kernel's launches, summed over the ranks, in
+    the checked (cold) solve."""
+    import numpy as np
+    from vanderbei_tpu_torch.parallel.distributed import run_ranks
+    t0 = time.perf_counter()
+    results = run_ranks(mesh_batch_rank, world, "gloo", device,
+                        timeout_s=RANK_TIMEOUT_S, args=(work,))
+    t_all = time.perf_counter() - t0
+    runs = results
+    for rank_runs_ in runs:
+        for rec in rank_runs_:
+            seen.update(rec["launch_shapes"])
+    cold = [r[0] for r in runs]
+    for other in cold[1:]:
+        if not all(np.array_equal(cold[0][k], other[k])
+                   for k in ("status", "iters", "x")):
+            fail("mesh-batch: the ranks assembled different classes")
+    key, entries, (_, _, c, _) = hsd_class(work)
+    st, x, iters = cold[0]["status"], cold[0]["x"], cold[0]["iters"]
+    rels = [abs(lane_objective(canon, c[j], x[j]) - refs[idx])
+            / max(1.0, abs(refs[idx])) for j, (idx, canon) in
+            enumerate(entries)]
+    d_it = np.abs(iters - np.asarray(lane_iters))
+    f32 = [int(s["iterations"].max()) for r in cold for s in r["stages"]
+           if s["precision"] == "f32"]
+    traffic = collectives(cold[0]["stages"],
+                          sum(int(s["iterations"].max())
+                              for s in cold[0]["stages"]))
+    walls = ", ".join(f"{r['label']} {r['seconds']:.3f} s" for r in runs[0])
+    busy = ", ".join(f"rank {k} {100 * r[2]['busy']:.1f} %"
+                     for k, r in enumerate(runs))
+    print(f"mesh-batch on {card}: class {key} on a (2, 2) mesh, {world} "
+          f"ranks on {device} (gloo), a rank's block {shard[0]}; statuses "
+          f"{st.tolist()}; iterations {iters.tolist()} (phase 10 "
+          f"{np.asarray(lane_iters).tolist()}, max diff {int(d_it.max())}); "
+          f"max rel vs "
+          f"HiGHS {max(rels):.3e}; f32 iterations by rank {f32}, kernel "
+          f"launches by rank {[r['launch_shapes'] for r in cold]}; wall of "
+          f"rank 0: {walls}; device busy in the profiled solve: {busy}; "
+          f"rank 0: {traffic}; spawn to end {t_all:.2f} s", flush=True)
+    if not np.all(st == 0):
+        fail(f"mesh-batch: lanes not OPTIMAL: {st.tolist()}")
+    if not max(rels) <= OBJ_RTOL:
+        fail(f"mesh-batch: objectives {max(rels):.3e} from HiGHS")
+    if int(d_it.max()) > MESH_ITERS:
+        fail(f"mesh-batch: iterations {iters.tolist()} against phase 10's "
+             f"{np.asarray(lane_iters).tolist()}")
+    if min(f32) <= 0 or any(r["launch_shapes"] != {shard: k}
+                            for r, k in zip(cold, f32)):
+        fail(f"mesh-batch: not one launch at {shard} per f32 iteration on "
+             f"each rank: {f32}, {[r['launch_shapes'] for r in cold]}")
+    return sum(r["launch_shapes"][shard] for r in cold)
 
 
 def check_dd_metrics(work, device="cuda", m=500, n=1000):
@@ -695,21 +983,25 @@ def main() -> int:
     err, times, checked = check_kernel(syrk, torch)
     seen = record_kernel_shapes(syrk)
     by_path = {}
-    by_path["hsd"], _, mps = solve_end_to_end(syrk, torch)
+    by_path["hsd"], ref4, mps, obj4, it4 = solve_end_to_end(syrk, torch)
     by_path["intpt"] = check_intpt(syrk, mps)
     work = os.path.dirname(mps)
     by_path["qp"] = check_qp(syrk, work)
-    by_path["batch-hsd"] = check_batch(
+    by_path["batch-hsd"], lane_iters, lane_refs = check_batch(
         syrk, torch, card, work, "hsd",
         [(560 + 4 * j, 1100 + 9 * j, j) for j in range(16)],
         want_key=("s", 1024, 1536, 1536))
-    by_path["batch-intpt"] = check_batch(
+    by_path["batch-intpt"], _, _ = check_batch(
         syrk, torch, card, work, "intpt",
         [(400 + 10 * j, 800 + 20 * j, j) for j in range(8)],
         want_key=(1536, 1024), rtol=INTPT_RTOL, ranged=True)
     check_batch(syrk, torch, card, work, "pd",
                 [(300 + 10 * j, 600 + 20 * j, j) for j in range(4)],
                 want_key=(1024, 1024))
+    by_path["mesh-tp"] = check_mesh_tp(card, mps, ref4, obj4, it4, seen)
+    by_path["mesh-nccl"] = check_mesh_nccl(syrk, torch, mps, obj4, it4)
+    by_path["mesh-batch"] = check_mesh_batch(card, work, lane_refs,
+                                             lane_iters, seen)
     unchecked = seen - checked
     print(f"kernel shapes of the solves: {sorted(seen)}; each held against "
           f"the plain version in phase 3: {not unchecked}", flush=True)

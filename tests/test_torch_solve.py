@@ -192,6 +192,8 @@ def test_import_loads_no_jax():
             "vanderbei_tpu_torch.ops.quad, vanderbei_tpu_torch.native, "
             "vanderbei_tpu_torch.core.builder, "
             "vanderbei_tpu_torch.parallel.batch, "
+            "vanderbei_tpu_torch.parallel.mesh, "
+            "vanderbei_tpu_torch.parallel.distributed, "
             "vanderbei_tpu_torch.evaluate, vanderbei_tpu_torch.sweep, "
             "vanderbei_tpu_torch.io.netlib, "
             "vanderbei_tpu_torch.utils.profiling; "

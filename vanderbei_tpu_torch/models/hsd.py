@@ -19,6 +19,15 @@ is live and undecided (the JAX lax.cond under vmap is such a select); the
 KKT layer reads its own retry and refinement flags.
 Everything else, including the stall detector, the quality gate and the
 finite-iterate guard, stays on the device as per-lane tensor arithmetic.
+
+Column shards (cols, parallel/distributed.ColumnShards): the state's x and
+z, like c and A, hold this rank's columns; y, w, phi and psi are whole on
+every rank.  The n-space inner products of one block of the iteration are
+stacked into one SUM all-reduce, the ratio tests' maxima over n into one
+MAX (MIN for the long step's linesearch), Ax is a partial sum completed
+with the residual block's dots, and the finite-iterate guard is agreed
+over the group; mu's denominators take the global n.  So every rank holds
+the same status, step and flags, and every host read agrees.
 """
 
 from __future__ import annotations
@@ -30,8 +39,9 @@ import numpy as np
 import torch
 
 from ..core.status import Status
-from ..ops.kkt import (dot as _dot, kkt_factor, kkt_solve, mv as _mv,
-                       UbTail, tail_matvec, tail_rmatvec, where_lanes)
+from ..ops.kkt import (dot as _dot, kkt_factor, kkt_solve, local,
+                       mv as _mv, UbTail, tail_matvec, tail_rmatvec,
+                       where_lanes)
 from ..ops.quad import dot2, matvec2
 
 DEFAULT_MAX_ITER = 200      # hsd.c:25
@@ -153,7 +163,8 @@ def make_step(A, b, c, *,
               factor_dtype=None,
               compensated: bool = False,
               corrector: str = "mehrotra",
-              ub: UbTail | None = None):
+              ub: UbTail | None = None,
+              cols=None):
     """Build the single-iteration step function, as
     vanderbei_tpu.models.hsd.make_step: body(state) -> state does one KKT
     factorization, the f/g solves, the ratio test or linesearch and the
@@ -167,10 +178,19 @@ def make_step(A, b, c, *,
 
     compensated=True is precision "dd": the residual products and the
     inner products go through quad.matvec2 / quad.dot2 (twice the working
-    precision), and so do the KKT refinement residuals."""
+    precision), and so do the KKT refinement residuals.  cols: column
+    shards (module docstring), with ub the rank's own tail
+    (ColumnShards.tail); not with compensated."""
     m, n = A.shape[-2:]
     if ub is not None:
         m = m + ub.idx2.shape[-1]    # y/w span the implicit tail rows too
+    if cols is None:
+        nsum = nmax = nmin = nall = local
+    elif compensated:
+        raise ValueError("precision 'dd' is not ported to column shards")
+    else:
+        nsum, nmax, nmin, nall = cols.sum, cols.max, cols.min, cols.all
+        n = cols.n
     dtype = A.dtype
     dev = A.device
     knob = lambda v: torch.full((), v, dtype=dtype, device=dev)
@@ -198,18 +218,21 @@ def make_step(A, b, c, *,
         x, z, y, w = s.x, s.z, s.y, s.w
         phi, psi = col(s.phi), col(s.psi)
 
-        mu = (dot(z, x) + dot(w, y) + phi * psi) / (n + m + 1)
+        # the n-space sums of the residual block, in one reduction
+        sigma = -mvT(A, y) + c * phi + z
+        zx, primal_obj, ss, cc, xs, ax = nsum(
+            dot(z, x), dot(c, x), dot(sigma, sigma), dot(c, c),
+            dot(x, sigma), mv(A, x))
+        mu = (zx + dot(w, y) + phi * psi) / (n + m + 1)
         if long_step:
             delta = 2.0 * (1.0 - beta)                       # hsdls.c:113
         else:
             delta = torch.where(col(s.iter) % 2 == 0, 0.0, one)  # hsd.c:138
 
-        primal_obj = dot(c, x)
         dual_obj = dot(b, y)
 
         # infeasibilities (hsd.c:182-198), before the stop test
-        rho = mv(A, x) - b * phi + w        # (m,) incl. implicit tail rows
-        sigma = -mvT(A, y) + c * phi + z
+        rho = ax - b * phi + w              # (m,) incl. implicit tail rows
 
         # stopping rule (hsd.c:155-176 / hsdls.c:134-154) plus the quality
         # gate on the de-homogenized point (see vanderbei_tpu's make_step)
@@ -217,12 +240,11 @@ def make_step(A, b, c, *,
         opt_test = phi > eps if long_step else phi > psi
         scale = 1.0 + torch.abs(primal_obj) / phi
         gap_rel = (dual_obj - primal_obj) / phi / scale
-        comp_rel = (dot(z, x) + dot(w, y)) / (phi * phi) / scale
+        comp_rel = (zx + dot(w, y)) / (phi * phi) / scale
         pinf_rel = torch.sqrt(dot(rho, rho)) / phi / (1.0 + torch.sqrt(dot(b, b)))
-        dinf_rel = (torch.sqrt(dot(sigma, sigma)) / phi
-                    / (1.0 + torch.sqrt(dot(c, c))))
+        dinf_rel = torch.sqrt(ss) / phi / (1.0 + torch.sqrt(cc))
         perr = torch.abs(dot(y, rho)) / (phi * phi) / scale
-        derr = torch.abs(dot(x, sigma)) / (phi * phi) / scale
+        derr = torch.abs(xs) / (phi * phi) / scale
         good = ((gap_rel <= gap_tol) & (comp_rel <= gap_tol)
                 & (pinf_rel <= feas_tol) & (dinf_rel <= feas_tol)
                 & (perr <= 10.0 * gap_tol) & (derr <= 10.0 * gap_tol))
@@ -255,7 +277,7 @@ def make_step(A, b, c, *,
         if trace:
             _trace_row(s.iter, primal_obj / phi + f,
                        torch.sqrt(dot(rho, rho)) / phi, dual_obj / phi + f,
-                       torch.sqrt(dot(sigma, sigma)) / phi, mu)
+                       torch.sqrt(nsum(dot(sigma, sigma))) / phi, mu)
 
         # the lanes whose step is kept: live and still undecided (all of
         # them, when the caller has read that a single LP steps)
@@ -268,19 +290,20 @@ def make_step(A, b, c, *,
             D = z / x
             E = w / y
             fac = kkt_factor(A, E, D, epsdiag, factor_dtype=factor_dtype,
-                             ub=ub, reg0=s.reg, active=stepping)
+                             ub=ub, reg0=s.reg, active=stepping, cols=cols)
             solve = lambda ry, rx: kkt_solve(
                 A, E, D, fac, ry, rx, epsdiag=epsdiag, refine_tol=refine_tol,
                 max_refine=max_refine, compensated=compensated, ub=ub,
-                active=stepping)
+                active=stepping, cols=cols)
 
             def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
                 """Fold a (delta, second-order) Newton system through the
                 shared f/g combination (hsd.c:230-238)."""
-                dphi = ((dot(c, fx) - dot(b, fy)
+                cfx, cgx = nsum(dot(c, fx), dot(c, gx))
+                dphi = ((cfx - dot(b, fy)
                          + (-(1.0 - dlt) * (dual_obj - primal_obj + psi)
                             + psi - dlt * mu / phi + so_phi / phi))
-                        / (dot(c, gx) - dot(b, gy) - psi / phi))
+                        / (cgx - dot(b, gy) - psi / phi))
                 dx = fx - gx * dphi
                 dy = fy - gy * dphi
                 dz = dlt * mu / x - z - D * dx - so_x / x
@@ -309,12 +332,12 @@ def make_step(A, b, c, *,
                     0.0, zero_x, zero_y, zero_s, gy, gx, fy, fx)
 
                 # full affine step to the boundary -> adaptive centering
-                t_a = _max(vmax(-dx_a / x), vmax(-dz_a / z),
+                t_a = _max(*nmax(vmax(-dx_a / x), vmax(-dz_a / z)),
                            vmax(-dy_a / y), vmax(-dw_a / w),
                            -dphi_a / phi, -dpsi_a / psi)
                 th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
                                    one)
-                mu_aff = (dot(z + th_a * dz_a, x + th_a * dx_a)
+                mu_aff = (nsum(dot(z + th_a * dz_a, x + th_a * dx_a))
                           + dot(w + th_a * dw_a, y + th_a * dy_a)
                           + (phi + th_a * dphi_a) * (psi + th_a * dpsi_a)
                           ) / (n + m + 1)
@@ -339,14 +362,14 @@ def make_step(A, b, c, *,
 
             if long_step:
                 theta = torch.minimum(
-                    vmin(_hsd_linesearch(x, dx, z, dz, beta, delta, mu)),
+                    nmin(vmin(_hsd_linesearch(x, dx, z, dz, beta, delta, mu))),
                     vmin(_hsd_linesearch(y, dy, w, dw, beta, delta, mu)))
                 theta = torch.minimum(theta, _hsd_linesearch(
                     phi, dphi, psi, dpsi, beta, delta, mu))
                 theta = torch.minimum(theta, one)
                 theta = torch.where(theta < 1.0, theta * 0.9999, theta)
             else:
-                t = _max(vmax(-dx / x), vmax(-dz / z),
+                t = _max(*nmax(vmax(-dx / x), vmax(-dz / z)),
                          vmax(-dy / y), vmax(-dw / w),
                          -dphi / phi, -dpsi / psi)
                 theta = torch.where(t > 0.0,
@@ -371,7 +394,7 @@ def make_step(A, b, c, *,
         # the last finite iterate and stops SUBOPTIMAL (hsdls.c:151)
         fin = lambda t: torch.isfinite(t).all(dim=-1, keepdim=batched)
         ok = (torch.isfinite(phi2) & torch.isfinite(psi2)
-              & fin(x2) & fin(z2) & fin(y2) & fin(w2))
+              & nall(fin(x2) & fin(z2)) & fin(y2) & fin(w2))
 
         def pick(new, prev):
             return torch.where(ok, new, prev)
@@ -387,8 +410,18 @@ def make_step(A, b, c, *,
     return body
 
 
-def _mu(s: HsdState, n_total: int):
-    return (_dot(s.z, s.x) + _dot(s.w, s.y) + s.phi * s.psi) / n_total
+def _mu(s: HsdState, n_total: int, nsum=local):
+    return (nsum(_dot(s.z, s.x)) + _dot(s.w, s.y) + s.phi * s.psi) / n_total
+
+
+def past_deadline(deadline: float, like, cols=None) -> bool:
+    """Whether the time.monotonic() `deadline` has passed.  Under column
+    shards the ranks agree, in one all-reduce on like's device: it has
+    passed on all of them once it has on any, so they stop together."""
+    late = time.monotonic() > deadline
+    if cols is None:
+        return late
+    return bool(cols.any(torch.tensor(late, device=like.device)).item())
 
 
 def _hsd_loop(A, b, c, f, init: HsdState, *,
@@ -404,11 +437,14 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
               corrector: str = "mehrotra",
               ub: UbTail | None = None,
               deadline: float | None = None,
-              on_iter=None):
+              on_iter=None,
+              cols=None):
     """Run from `init` until the status is decided, max_iter is reached,
     mu falls to `pause_mu` (a stage boundary; 0.0 = run to convergence) or
-    the time.monotonic() `deadline` passes (checked after each iteration).
-    on_iter(state), if given, sees the state before each step.
+    the time.monotonic() `deadline` passes (checked after each iteration;
+    under cols, on any rank: past_deadline).  on_iter(state), if given,
+    sees the state before each step.  cols: the column shards of A, c and
+    the state's x and z (make_step).
 
     Each lane stops on its own; the loop runs while any lane runs.
     Returns (state, paused): the state NOT de-homogenized, and whether
@@ -420,10 +456,13 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
                      gap_tol=gap_tol, feas_tol=feas_tol,
                      long_step=long_step, max_refine=max_refine,
                      trace=trace, f=f, factor_dtype=factor_dtype,
-                     compensated=compensated, corrector=corrector, ub=ub)
+                     compensated=compensated, corrector=corrector, ub=ub,
+                     cols=cols)
     m, n = A.shape[-2:]
     if ub is not None:
         m = m + ub.idx2.shape[-1]
+    if cols is not None:
+        n = cols.n
     pause = torch.full((), pause_mu, dtype=A.dtype, device=A.device)
     state = init
     while True:
@@ -431,7 +470,7 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
         # whether any lane is live, and whether any live lane steps
         pre = body.decide(state)
         live = ((state.status == _RUNNING) & (state.iter < max_iter)
-                & (_mu(state, n + m + 1) > pause))
+                & (pre.mu.reshape(state.status.shape) > pause))
         stepping = live & (pre.new_status == _RUNNING).reshape(live.shape)
         any_live, any_step = torch.stack([live.any(), stepping.any()]
                                          ).tolist()
@@ -441,10 +480,11 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
             on_iter(state)
         # a single LP steps only when live: no lanes to keep
         state = body(state, live if live.dim() else None, pre, any_step)
-        if deadline is not None and time.monotonic() > deadline:
+        if deadline is not None and past_deadline(deadline, A, cols):
             break
+    mu = _mu(state, n + m + 1, local if cols is None else cols.sum)
     paused = bool(((state.status == _RUNNING) & (state.iter < max_iter)
-                   & (_mu(state, n + m + 1) <= pause)).all().item())
+                   & (mu <= pause)).all().item())
     return state, paused
 
 

@@ -18,10 +18,18 @@ iterate on the same system.
 
 A SUBOPTIMAL hsd/hsdls verdict is retried unscaled, then cross-checked
 with intpt; an LP with a QUADS section is routed to intpt.
+
+solve(lp, mesh=...) is the tensor-parallel path of one large LP (the JAX
+package's _place_tp): every rank of the mesh calls it (SPMD), A's (or the
+UbTail head's) columns and c are split over the mesh's "model" ranks, the
+rest is whole on every rank, and the same HSD loop runs with explicit
+collectives (parallel/distributed.py); each rank returns the same full
+Solution.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -32,6 +40,9 @@ from ..core.canonicalize import (canonicalize, pad_canon, recover_solution,
 from ..core.config import SolverConfig
 from ..core.lp import LP, Solution
 from ..core.status import Status
+from ..ops.kkt import local
+from ..parallel.distributed import (ColumnShards, column_shard,
+                                    model_size)
 from ..utils.checkpoint import operands_from_canon
 from . import hsd as _hsd
 from . import intpt as _intpt
@@ -67,9 +78,10 @@ def resolve_precision(cfg: SolverConfig, shape) -> str:
     return "mixed" if min(shape) >= cfg.mixed_min_dim else "f64"
 
 
-def _state_finite(state) -> bool:
-    """x finite, and phi too for an HSD state (an intpt state has none)."""
-    ok = torch.isfinite(state.x).all()
+def _state_finite(state, nall=local) -> bool:
+    """x finite (on every column shard: nall), and phi too for an HSD
+    state (an intpt state has none)."""
+    ok = nall(torch.isfinite(state.x).all())
     if hasattr(state, "phi"):
         ok = ok & torch.isfinite(state.phi)
     return bool(ok.item())
@@ -77,7 +89,7 @@ def _state_finite(state) -> bool:
 
 def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
                 max_iter: int, mk_args32, mk_args64, stage_knob: float, shape,
-                stages: list):
+                stages: list, cols: ColumnShards | None = None):
     """Two-stage driver of the IPM solvers: an f32 sprint to stage_knob,
     then the f64 polish.
 
@@ -85,7 +97,9 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
     where paused means the solve reached the stage boundary (mu for hsd,
     the duality gap for intpt); solver_mod.cast_state moves the paused
     state to f64.  Appends one record per stage run to `stages`.  Returns
-    the final state.
+    the final state.  cols: the column shards of the state's x, if any
+    (each stage's record then counts its all-reduces, their bytes and
+    seconds); `shape` is always the global one.
     """
     precision = resolve_precision(cfg, shape)
     deadline = (None if not np.isfinite(cfg.time_limit)
@@ -94,9 +108,12 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
     def timed(label, args, state, pause, factor_dtype):
         t0 = time.perf_counter()
         it0 = int(state.iter)
+        count0 = None if cols is None else cols.counts()
         state, paused = run_stage(args, state, pause, factor_dtype, deadline)
         stages.append(dict(precision=label, iterations=int(state.iter) - it0,
                            seconds=time.perf_counter() - t0, paused=paused))
+        if cols is not None:
+            stages[-1].update(cols.counts(since=count0))
         return state
 
     state = None
@@ -104,7 +121,7 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
     if precision == "mixed":
         args32 = mk_args32()
         state = timed("f32", args32, init_for(args32), stage_knob, None)
-        if (not _state_finite(state)
+        if (not _state_finite(state, local if cols is None else cols.all)
                 or int(state.status) == int(Status.SUBOPTIMAL)):
             # the f32 sprint diverged (the finite-iterate guard stopped it
             # SUBOPTIMAL): restart clean in f64 rather than polish it
@@ -132,7 +149,8 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
     # retry: the f32 sprint can wander on degenerate problems
     if (warm and int(state.status) == int(Status.RUNNING)
             and int(state.iter) >= max_iter
-            and (deadline is None or time.monotonic() < deadline)):
+            and (deadline is None
+                 or not _hsd.past_deadline(deadline, state.x, cols))):
         state = timed(label + " retry", args64, init_for(args64), 0.0,
                       factor_dtype)
     return state
@@ -178,18 +196,37 @@ def _hsd_structured_operands(canon: CanonLP, M1: int | None = None,
 
 
 def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
-               long_step: bool = False):
+               long_step: bool = False, mesh=None):
     max_iter = cfg.max_iter or (
         _hsd.DEFAULT_MAX_ITER_LS if long_step else _hsd.DEFAULT_MAX_ITER)
     trace = cfg.verbose >= 2
     if trace:
         print(_hsd.HSD_BANNER, flush=True)
 
-    struct = (_hsd_structured_operands(canon)
+    # under a mesh the columns split evenly over the "model" ranks: the
+    # head's size class pads up to a multiple of them (zero columns, c = 0)
+    # as solve() pads a dense canon
+    N = (None if mesh is None
+         else -(-size_class(canon.n) // model_size(mesh)) * model_size(mesh))
+    struct = (_hsd_structured_operands(canon, N=N)
               if cfg.use_ub_structure else None)
+    cols = None
     source = canon if struct is None else struct
     shape = (canon.A.shape if struct is None
              else (struct["M1"], struct["A1"].shape[1]))
+    if mesh is not None:
+        cols = ColumnShards.split(mesh.get_group("model"), shape[1])
+        source = (dataclasses.replace(canon, A=column_shard(canon.A, cols),
+                                      c=column_shard(canon.c, cols))
+                  if struct is None else
+                  dict(struct, A1=column_shard(struct["A1"], cols),
+                       c=column_shard(struct["c"], cols)))
+
+    def operands(dtype):
+        A, b, c, ub = operands_from_canon(source, device, dtype)
+        if cols is not None and ub is not None:
+            ub = cols.tail(ub)
+        return A, b, c, ub
 
     def run_stage(args, init, pause, factor_dtype, deadline):
         A, b, c, ub = args
@@ -203,7 +240,7 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
             max_refine=cfg.max_refine, trace=trace,
             factor_dtype=factor_dtype, pause_mu=pause,
             compensated=(cfg.precision == "dd" and not sprint),
-            corrector=cfg.hsd_corrector, ub=ub, deadline=deadline)
+            corrector=cfg.hsd_corrector, ub=ub, deadline=deadline, cols=cols)
 
     def init_for(args):
         ub = args[3]
@@ -212,10 +249,11 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
 
     state = _run_staged(
         _hsd, run_stage, init_for, cfg, max_iter,
-        lambda: operands_from_canon(source, device, torch.float32),
-        lambda: operands_from_canon(source, device, torch.float64),
-        cfg.stage1_mu, shape, stages)
+        lambda: operands(torch.float32), lambda: operands(torch.float64),
+        cfg.stage1_mu, shape, stages, cols)
     status, x, y, w, z, iters = _hsd.finish_state(state, max_iter)
+    if cols is not None:
+        x, z = cols.gather(x), cols.gather(z)
     if struct is not None:
         # reassemble canonical row order [head m1 | ub tail k] from the
         # padded [M1 | K] layout
@@ -272,8 +310,8 @@ def _solve_intpt(canon: CanonLP, cfg: SolverConfig, device, stages: list):
 SOLVERS = {
     "intpt": _solve_intpt,
     "hsd": _solve_hsd,
-    "hsdls": lambda canon, cfg, device, stages: _solve_hsd(
-        canon, cfg, device, stages, long_step=True),
+    "hsdls": lambda canon, cfg, device, stages, **kw: _solve_hsd(
+        canon, cfg, device, stages, long_step=True, **kw),
     "pd": _simplex.solve_canon_pd,
     "twophase": _simplex.solve_canon_twophase,
 }
@@ -298,13 +336,22 @@ def _pad(canon: CanonLP, pad_to, structured: bool) -> CanonLP:
 
 
 def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
-          pad_to: int | str = "auto", device="cuda") -> Solution:
+          pad_to: int | str = "auto", device="cuda", mesh=None) -> Solution:
     """Canonicalize and solve an LP on `device` (the analogue of solvelp,
     solve.c:28).  device is explicit: "cuda" (the default) raises when no
     CUDA device is present; pass "cpu" to run the plain torch versions.
 
     pad_to: "auto" pads canonical dims to the size classes, as the JAX
     package does; an int pads to that multiple (1 = exact dims).
+
+    mesh: a DeviceMesh with a "model" dim (parallel/mesh.make_mesh), to
+    solve this one LP tensor-parallel: called on every rank of the mesh,
+    each with its own device, it splits the columns over the "model" ranks
+    (padded with zero columns to a multiple of them) and returns the same
+    Solution on every rank.  The hsd family only, no "dd" precision, and no
+    quality retries (as the JAX package's mesh path).  Every rank passes
+    the same config; a finite time limit stops them all at the iteration
+    where it has passed on any.
     """
     device = resolve_device(device)
     cfg = config or SolverConfig()
@@ -318,6 +365,13 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         method = "intpt"
     solver = get_solver(method)
     hsd_family = method in ("hsd", "hsdls")
+    if mesh is not None and not hsd_family:
+        raise ValueError(
+            f"mesh (tensor-parallel) solve supports the hsd family, "
+            f"not {method!r}")
+    if mesh is not None and cfg.precision == "dd":
+        raise ValueError("precision 'dd' is not ported to the mesh "
+                         "(tensor-parallel) solve")
     canon = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
                          free_vars=cfg.free_vars, scale=cfg.scale)
     if canon.status != int(Status.RUNNING):
@@ -328,10 +382,16 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
     structured = (hsd_family and cfg.use_ub_structure
                   and _hsd_structure_applies(canon))
     canon = _pad(canon, pad_to, structured)
+    kw = {}
+    if mesh is not None:
+        kw["mesh"] = mesh
+        size = model_size(mesh)
+        if not structured and canon.n % size:
+            canon = pad_canon(canon, canon.m, -(-canon.n // size) * size)
     stages: list = []
     t0 = time.perf_counter()
-    status, x, y, w, z, iters = solver(canon, cfg, device, stages)
-    if (hsd_family and cfg.quality_retries
+    status, x, y, w, z, iters = solver(canon, cfg, device, stages, **kw)
+    if (hsd_family and mesh is None and cfg.quality_retries
             and status == int(Status.SUBOPTIMAL) and cfg.scale != "none"):
         # the quality gate flagged a converged-but-poor point: re-solve
         # UNSCALED (the equilibration can steer a few instances to a
@@ -348,7 +408,7 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
             status, x, y, w, z = st2, x2, y2, w2, z2
             iters = iters + it2
             canon = canon2
-    if (hsd_family and cfg.quality_retries
+    if (hsd_family and mesh is None and cfg.quality_retries
             and status == int(Status.SUBOPTIMAL)
             and canon.m * canon.n <= 100_000_000):
         # second retry: cross-check with the path-following solver, which

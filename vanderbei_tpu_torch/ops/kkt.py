@@ -29,6 +29,20 @@ f64 product, the Cholesky factor (cholesky_ex, whose `info` joins the
 NaN/Inf scan), the triangular solves and the matvecs stay torch.matmul /
 torch.linalg.  Each factor retry and each refinement pass reads one flag
 on the host.
+
+Column shards (cols, a parallel/distributed.ColumnShards): A and every
+n-vector hold only this rank's columns, m-vectors are whole on every rank,
+and each reduction over the column dim goes through the "model" group: the
+normal matrix is the all-reduced sum of the ranks' partial products
+(normal_matrix), a row-space product A @ v is a
+partial sum completed by an all-reduce, A' @ y stays local, and the
+refinement's residual maxima are all-reduced (MAX).  The UbTail is the
+rank's own (ColumnShards.tail): tail rows of columns it does not own
+weigh 0, so a gather from the columns into the tail rows is a partial
+sum too.  Every flag the host reads (factor retry, refinement) is one the
+group agrees on.  Only the primal form decomposes over column shards: with
+cols, a system the dual form would take (m > n, or a Q) raises ValueError.
+cols=None is the single-device path.
 """
 
 from __future__ import annotations
@@ -61,6 +75,12 @@ def dot(a, b):
 def lanes(mask, like):
     """A per-lane mask (...) shaped to broadcast against `like`."""
     return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def local(*parts):
+    """The reduction over the column dim of an unsharded operand: none;
+    returns its argument (several: the tuple)."""
+    return parts[0] if len(parts) == 1 else parts
 
 
 def where_lanes(mask, new, old):
@@ -140,15 +160,65 @@ def _cholesky(Mr):
     return L, bad
 
 
+def normal_matrix(A, Ec, Dc, f32_path: bool, Q=None, dinv=None, cols=None):
+    """The reduced normal matrix from the clamped Ec, Dc: the primal form's
+    E + A diag(dinv) A' (dinv = 1/Dc unless given, as the UbTail head's
+    reduced column weights are) or the dual form's D + Q + A' E^-1 A.
+    f32_path forms it with scaled_syrk in float32, else with torch.matmul
+    in A's dtype.
+
+    Under column shards (the primal form only) each rank forms its partial
+    product with e = 0, the group sums them, and diag(E) is added once
+    after the sum."""
+    m, n = A.shape[-2:]
+    # a shard's own width does not choose the form: kkt_factor checked
+    # the global one
+    primal = cols is not None or use_primal_form(m, n, Q is not None)
+    f32 = torch.float32
+    diag = torch.diag_embed
+    Ep = Ec if cols is None else torch.zeros_like(Ec)
+    if dinv is not None:
+        if f32_path:
+            M = scaled_syrk(A.to(f32), dinv.to(f32), Ep.to(f32))
+        else:
+            M = (A * dinv.unsqueeze(-2)) @ A.mT + diag(Ep)
+    elif f32_path:
+        if primal:
+            M = scaled_syrk(A.to(f32), (1.0 / Dc).to(f32), Ep.to(f32))
+        else:
+            # A' as a strided view: the kernel reads it in place
+            M = scaled_syrk(A.mT.to(f32), (1.0 / Ec).to(f32), Dc.to(f32))
+            if Q is not None:
+                M = M + Q.to(M.dtype)
+    elif primal:
+        M = (A / Dc.unsqueeze(-2)) @ A.mT
+        M = M + diag(Ep)
+    else:
+        M = (A.mT / Ec.unsqueeze(-2)) @ A
+        M = M + diag(Dc)
+        if Q is not None:
+            M = M + Q
+    if cols is not None:
+        M = cols.sum(M) + diag(Ec.to(M.dtype))
+    return M
+
+
 def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
-               ub: UbTail | None = None, reg0=None, active=None) -> KKTFactor:
+               ub: UbTail | None = None, reg0=None, active=None,
+               cols=None) -> KKTFactor:
     """Cholesky-factor the reduced normal-equations matrix.
 
     E, D are clamped below by epsdiag (ldlt.c:235-236).  reg0 (one level
     per lane) seeds the Tikhonov escalation with the level the previous
     iteration's factor needed (sticky, like the reference's epsdiag).
-    active: a per-lane mask; lanes outside it do not retry."""
+    active: a per-lane mask; lanes outside it do not retry.  cols: column
+    shards (module docstring); the primal form only."""
     m, n = A.shape[-2:]
+    nsum, nany = (local, local) if cols is None else (cols.sum, cols.any)
+    if cols is not None and (Q is not None or not use_primal_form(
+            m, cols.n, False)):
+        raise ValueError(f"column shards need the primal form: m={m}, "
+                         f"n={cols.n}, Q given: {Q is not None}")
     Ec = E.clamp_min(epsdiag)        # clamp_min propagates NaN, as
     Dc = D.clamp_min(epsdiag)        # jnp.maximum does
     g2 = None
@@ -159,36 +229,15 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         m1 = m
         E1, E2 = Ec[..., :m1], Ec[..., m1:]
         Dinv = 1.0 / Dc
-        d2 = ub.w2 * ub.w2 * _take(Dinv, ub.idx2)
-        g2 = E2 + d2
+        d2 = ub.w2 * ub.w2 * _take(Dinv, ub.idx2)   # (shards: partial)
+        g2 = E2 + nsum(d2)
         corr = d2 * _take(Dinv, ub.idx2) / g2    # exactly 0 on padding rows
         Dt = _add_at(Dinv, ub.idx2, -corr)       # = 1/(D_j + w^2/E2)
         Ec = E1
     f32_path = (factor_dtype == torch.float32
                 or (A.dtype == torch.float32 and factor_dtype is None))
-    f32 = torch.float32
-    diag = torch.diag_embed
-    if ub is not None:
-        if f32_path:
-            M = scaled_syrk(A.to(f32), Dt.to(f32), Ec.to(f32))
-        else:
-            M = (A * Dt.unsqueeze(-2)) @ A.mT + diag(Ec)
-    elif f32_path:
-        if use_primal_form(m, n, Q is not None):
-            M = scaled_syrk(A.to(f32), (1.0 / Dc).to(f32), Ec.to(f32))
-        else:
-            # A' as a strided view: the kernel reads it in place
-            M = scaled_syrk(A.mT.to(f32), (1.0 / Ec).to(f32), Dc.to(f32))
-            if Q is not None:
-                M = M + Q.to(M.dtype)
-    elif use_primal_form(m, n, Q is not None):
-        M = (A / Dc.unsqueeze(-2)) @ A.mT
-        M = M + diag(Ec)
-    else:
-        M = (A.mT / Ec.unsqueeze(-2)) @ A
-        M = M + diag(Dc)
-        if Q is not None:
-            M = M + Q
+    M = normal_matrix(A, Ec, Dc, f32_path, Q=Q,
+                      dinv=Dt if ub is not None else None, cols=cols)
 
     # the scaling vector stays at DATA precision: solves multiply through
     # it, and truncating it would cap refinement at factor accuracy
@@ -209,6 +258,7 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
     reg = torch.as_tensor(0.0 if reg0 is None else reg0, dtype=Ms.dtype,
                           device=Ms.device).expand(lead).clone()
     L, bad = _cholesky(Ms + reg[..., None, None] * eye)
+    bad = nany(bad)
     # retry lane by lane (a single LP is one lane): refactor the lanes
     # whose factor failed, each at its own next level
     L, bad, reg = L.reshape(-1, *L.shape[-2:]), bad.reshape(-1), \
@@ -223,7 +273,7 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         r = reg[retry]
         r = torch.where(r == 0.0, torch.full_like(r, floor), r * 100.0)
         Lr, badr = _cholesky(Mf[retry] + r[:, None, None] * eye)
-        reg[retry], L[retry], bad[retry] = r, Lr, badr
+        reg[retry], L[retry], bad[retry] = r, Lr, nany(badr)
         retry_ok[retry] = r < 1.0e-2
     L, bad, reg = L.reshape(Ms.shape), bad.reshape(lead), reg.reshape(lead)
     # a factor that never succeeded is all NaN, as the JAX factor is: the
@@ -240,10 +290,12 @@ def _scaled_cho_solve(fac: KKTFactor, t):
     return s * u.to(fac.s.dtype)
 
 
-def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
+def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None,
+               cols=None):
     """One forward/backward pass: K [dy; dx] = [ry; rx] via the factor.
     ry: (..., m, k), rx: (..., n, k) column-stacked right-hand sides."""
     m, n = A.shape[-2:]
+    nsum = local if cols is None else cols.sum
     col = lambda v: v.unsqueeze(-1)
     if ub is not None:
         # Schur path: solve the m1 head, back out the diagonal tail
@@ -252,17 +304,18 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
         g2 = col(fac.g2)
         w2 = col(ub.w2)
         rxD = rx * Dinv
-        t2 = w2 * _take(rxD, ub.idx2) - ry[..., m1:, :]
+        t2 = nsum(w2 * _take(rxD, ub.idx2)) - ry[..., m1:, :]
         fold = _add_at(rxD, ub.idx2, -w2 * _take(Dinv, ub.idx2) * t2 / g2)
-        t1 = A @ fold - ry[..., :m1, :]
+        t1 = nsum(A @ fold) - ry[..., :m1, :]
         dy1 = _scaled_cho_solve(fac, t1)
         aty = A.mT @ dy1
-        dy2 = (t2 - w2 * _take(Dinv, ub.idx2) * _take(aty, ub.idx2)) / g2
+        dy2 = (t2 - nsum(w2 * _take(Dinv, ub.idx2) * _take(aty, ub.idx2))
+               ) / g2
         dx = (rx - aty - _add_at(torch.zeros_like(rx), ub.idx2, w2 * dy2)
               ) * Dinv
         return torch.cat([dy1, dy2], dim=-2), dx
-    if use_primal_form(m, n, Q is not None):
-        t = A @ (rx / col(Dc)) - ry
+    if cols is not None or use_primal_form(m, n, Q is not None):
+        t = nsum(A @ (rx / col(Dc))) - ry
         dy = _scaled_cho_solve(fac, t)
         dx = (rx - A.mT @ dy) / col(Dc)
     else:
@@ -275,7 +328,7 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None):
 def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
               epsdiag=1.0e-14, refine_tol=1.0e-10, max_refine: int = 8,
               compensated: bool = False, ub: UbTail | None = None,
-              active=None):
+              active=None, cols=None):
     """Solve [[-E, A], [A', D+Q]] [dy; dx] = [rhs_y; rhs_x] with refinement.
 
     Residuals use the TRUE (unclamped) E, D while the factor used the
@@ -284,7 +337,12 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     the target or stops halving; lanes outside `active` do not refine.
     compensated=True forms the refinement residuals' products with
     quad.matvec2 (twice the working precision, the QuadPrec analogue), so
-    refinement can go below the plain products' roundoff floor."""
+    refinement can go below the plain products' roundoff floor.  cols:
+    column shards (module docstring); not with compensated."""
+    if cols is not None and compensated:
+        raise ValueError("compensated (dd) solves are not ported to column "
+                         "shards")
+    nsum, nmax = (local, local) if cols is None else (cols.sum, cols.max)
     Ec = E.clamp_min(epsdiag)
     Dc = D.clamp_min(epsdiag)
     single = rhs_y.dim() == E.dim()
@@ -301,7 +359,7 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     col = lambda v: v.unsqueeze(-1)
 
     def residual(dy, dx):
-        r1 = rhs_y + col(E) * dy - mv_(A, dx)
+        r1 = rhs_y + col(E) * dy - nsum(mv_(A, dx))
         r2 = rhs_x - mvT(A, dy) - col(D) * dx
         if Q is not None:
             r2 = r2 - base_mv(Q, dx)
@@ -310,13 +368,14 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     def amax(t):
         return t.abs().amax(dim=(-2, -1))
 
-    def max_resid(dy, dx):
-        r1, r2 = residual(dy, dx)
-        return torch.maximum(amax(r1), amax(r2))
+    def max_resid(r1, r2):
+        return torch.maximum(amax(r1), nmax(amax(r2)))
 
-    dy, dx = _raw_solve(A, Ec, Dc, L, rhs_y, rhs_x, Q, ub=ub)
-    maxbc = torch.maximum(amax(rhs_y), amax(rhs_x)) + 1.0
-    maxrs = max_resid(dy, dx)
+    dy, dx = _raw_solve(A, Ec, Dc, L, rhs_y, rhs_x, Q, ub=ub, cols=cols)
+    maxbc = torch.maximum(amax(rhs_y), nmax(amax(rhs_x))) + 1.0
+    # the residual of the current (dy, dx), kept for the next pass
+    r1, r2 = residual(dy, dx)
+    maxrs = max_resid(r1, r2)
     # a lane that stopped refining stays stopped (its maxrs, oldmaxrs no
     # longer change), so every refining lane has made the same number of
     # passes, and one that never refined keeps oldmaxrs = inf
@@ -328,8 +387,7 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
             go = go & active
         if not bool(go.any().item()):
             break
-        r1, r2 = residual(dy, dx)
-        cy, cx = _raw_solve(A, Ec, Dc, L, r1, r2, Q, ub=ub)
+        cy, cx = _raw_solve(A, Ec, Dc, L, r1, r2, Q, ub=ub, cols=cols)
         if go.dim():
             # lanes that stopped refining keep their solution and their
             # last correction (for the revert below)
@@ -339,11 +397,13 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
                       (torch.where(g, cy, ey), torch.where(g, cx, ex)))
             oldmaxrs = torch.where(go, maxrs, oldmaxrs)
             dy, dx = dy + cy, dx + cx
-            maxrs = torch.where(go, max_resid(dy, dx), maxrs)
+            r1, r2 = residual(dy, dx)
+            maxrs = torch.where(go, max_resid(r1, r2), maxrs)
         else:
             ey, ex, oldmaxrs = cy, cx, maxrs
             dy, dx = dy + cy, dx + cx
-            maxrs = max_resid(dy, dx)
+            r1, r2 = residual(dy, dx)
+            maxrs = max_resid(r1, r2)
 
     # revert the last correction if it made the residual worse (ldlt.c:413-416)
     if ey is not None:

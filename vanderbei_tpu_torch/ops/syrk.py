@@ -14,7 +14,8 @@ a hash of every source under csrc/ and of the nvcc flags, so an edit to
 any of them builds a new library and a stale one is never loaded.
 `route_launches` counts the kernel's launches by copy path and layout
 (keys such as "tma/transposed"), so a run can show that the solver went
-through it; `launch_count()` is their total and `reset_counts` zeroes them.
+through it, and `launch_shapes` by the shape and layout of X; `launch_count()`
+is their total and `reset_counts` zeroes both.
 """
 
 from __future__ import annotations
@@ -36,12 +37,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-ldl", "-Xptxas", "-v"]
 
 route_launches = {}   # launches since the last reset, by route/layout
+launch_shapes = {}    # ... and by (X's shape, layout)
 build_log = ""        # nvcc's output (ptxas register/spill report) of a build
 _lib = None
 
 
 def reset_counts() -> None:
     route_launches.clear()
+    launch_shapes.clear()
 
 
 def launch_count() -> int:
@@ -119,6 +122,7 @@ def scaled_syrk_cuda(X, s, e):
     any non-negative strides; s (…, n) and e (…, m) f32 with unit stride
     along their last dimension.  Returns a new contiguous f32 M."""
     batched = X.dim() == 3
+    shape_key = (tuple(X.shape), layout(X))
     if not batched:
         if X.dim() != 2:
             raise ValueError(f"scaled_syrk: X must be 2-D or 3-D, got "
@@ -151,6 +155,7 @@ def scaled_syrk_cuda(X, s, e):
                            + lib.vt_cuda_error_string(rc).decode())
     key = f"{route(X)}/{layout(X)}"
     route_launches[key] = route_launches.get(key, 0) + 1
+    launch_shapes[shape_key] = launch_shapes.get(shape_key, 0) + 1
     return M if batched else M[0]
 
 

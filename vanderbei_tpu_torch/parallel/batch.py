@@ -19,6 +19,12 @@ polishes every lane in f64 to the reference tolerance (hsd.c:24).
 The stacked classes are numpy arrays; the solvers move them to the device
 with torch.from_numpy(...).to(device).  Every solver takes `device`,
 "cuda" by default, and raises when CUDA is absent.
+
+On a ("batch", "model") mesh (parallel/mesh.py) each rank takes its block
+of a class with shard_batch: its lanes over "batch" and, where asked, its
+columns over "model"; solve_batch_hsd(..., mesh=) then solves those lanes
+with the columns split over the rank's "model" group, and gather_lanes
+assembles the whole class on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.canonicalize import canonicalize
 from ..core.config import SolverConfig
@@ -37,6 +44,8 @@ from ..models import simplex as _simplex
 from ..models.registry import (_hsd_structure_applies,
                                _hsd_structured_operands, resolve_device)
 from ..ops.kkt import UbTail, where_lanes
+from .distributed import ColumnShards, model_size
+from .mesh import batch_sharding, block
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -117,6 +126,39 @@ def stack_class_structured(entries, M1: int, N: int, K: int,
     return A1, b, c, UbTail(idx2, w2)
 
 
+def shard_batch(arrays, mesh, model_axis_dims=()):
+    """This rank's block of stacked (B, ...) arrays (numpy or tensors): its
+    lanes over the mesh's "batch" dim and, for each array i whose
+    model_axis_dims[i] is a dim (not None), its contiguous share of that
+    dim over "model", e.g. A's columns: shard_batch([A, b, c], mesh,
+    model_axis_dims=(2, None, 1)).  Returns contiguous copies."""
+    out = []
+    for i, arr in enumerate(arrays):
+        part = batch_sharding(mesh, arr)
+        dim = model_axis_dims[i] if i < len(model_axis_dims) else None
+        if dim is not None:
+            part = block(mesh, part, "model", dim)
+        out.append(part.contiguous().clone()
+                   if isinstance(part, torch.Tensor) else part.copy())
+    return out
+
+
+def gather_lanes(arrays, mesh):
+    """The whole class on every rank from each rank's lanes (the outputs
+    of solve_batch_hsd under `mesh`): one all-reduce over "batch" per
+    array."""
+    group = mesh.get_group("batch")
+    size, pos = dist.get_world_size(group), mesh.get_local_rank("batch")
+    out = []
+    for t in arrays:
+        B = t.shape[0]
+        full = t.new_zeros(B * size, *t.shape[1:])
+        full[pos * B:(pos + 1) * B] = t
+        dist.all_reduce(full, group=group)
+        out.append(full)
+    return out
+
+
 def _tensor(a, device, dtype=torch.float64):
     if isinstance(a, torch.Tensor):
         return a.to(device, dtype)
@@ -130,15 +172,19 @@ def _ub(ub, device, dtype):
                   _tensor(ub.w2, device, dtype))
 
 
-def _timed(stages, label, run, state):
-    """Run one stage; append its per-lane iterations and wall seconds."""
+def _timed(stages, label, run, state, cols=None):
+    """Run one stage; append its per-lane iterations and wall seconds (and
+    under column shards its all-reduces, their bytes and seconds)."""
     t0 = time.perf_counter()
     it0 = state.iter
+    count0 = None if cols is None else cols.counts()
     out, _ = run(state)
     if stages is not None:
         stages.append(dict(precision=label,
                            iterations=(out.iter - it0).cpu().numpy(),
                            seconds=time.perf_counter() - t0))
+        if cols is not None:
+            stages[-1].update(cols.counts(since=count0))
     return out
 
 
@@ -157,7 +203,8 @@ def solve_batch_hsd(A, b, c, *,
                     compensated: bool = False,
                     stage1_mu: float = 1.0e-4,
                     device="cuda",
-                    stages: list | None = None):
+                    stages: list | None = None,
+                    mesh=None):
     """Two-stage batched HSD over a stacked class A (B, mp, np_).
 
     ub: batched UbTail (idx2, w2 each (B, K)); A then holds only head rows
@@ -168,12 +215,26 @@ def solve_batch_hsd(A, b, c, *,
     if given, receives one record per stage (per-lane iterations, wall
     seconds).
 
+    mesh: the class is this rank's block of it (shard_batch): A and c hold
+    its columns of the "model" dim, which the solve splits over the rank's
+    "model" group, and ub its lanes with their global column indices.
+    Called on every rank; returns this rank's lanes with all their columns
+    (gather_lanes assembles the class).  Not with compensated.
+
     Returns (status, x, y, w, z, iterations), each batched over B, on
     `device`."""
     device = resolve_device(device)
     f64 = torch.float64
     A, b, c = (_tensor(v, device) for v in (A, b, c))
     extra = 0 if ub is None else np.shape(ub.idx2)[-1]
+    cols = None
+    if mesh is not None:
+        cols = ColumnShards.split(mesh.get_group("model"),
+                                  A.shape[-1] * model_size(mesh))
+
+    def tail(dtype):
+        u = _ub(ub, device, dtype)
+        return u if cols is None or u is None else cols.tail(u)
     knobs = dict(max_iter=max_iter, eps=eps, step_factor=step_factor,
                  beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
                  long_step=long_step, max_refine=max_refine,
@@ -182,7 +243,7 @@ def solve_batch_hsd(A, b, c, *,
     def run(A_, b_, c_, ub_, pause, factor_dtype, knobs_, comp):
         return lambda st: _hsd._hsd_loop(
             A_, b_, c_, 0.0, st, pause_mu=pause, factor_dtype=factor_dtype,
-            compensated=comp, ub=ub_, **knobs_)
+            compensated=comp, ub=ub_, cols=cols, **knobs_)
 
     factor_dtype = None
     if precision == "mixed":
@@ -192,13 +253,16 @@ def solve_batch_hsd(A, b, c, *,
         f32 = torch.float32
         A32 = A.to(f32)
         st = _timed(stages, "f32", run(A32, b.to(f32), c.to(f32),
-                                       _ub(ub, device, f32), stage1_mu,
+                                       tail(f32), stage1_mu,
                                        None, knobs32, False),
-                    _hsd.init_state(A32, extra_rows=extra))
+                    _hsd.init_state(A32, extra_rows=extra), cols)
         st = _hsd.cast_state(st, f64)
         # lanes that diverged in f32 restart clean in f64 (the finiteness
         # guard stops such lanes SUBOPTIMAL at the last finite iterate)
-        ok = (torch.isfinite(st.x).all(-1) & torch.isfinite(st.phi)
+        finite = torch.isfinite(st.x).all(-1)
+        if cols is not None:
+            finite = cols.all(finite)
+        ok = (finite & torch.isfinite(st.phi)
               & (st.status != int(Status.SUBOPTIMAL)))
         st = where_lanes(ok, st, _hsd.init_state(A, extra_rows=extra))
     else:
@@ -206,9 +270,13 @@ def solve_batch_hsd(A, b, c, *,
         if precision == "f32factor":
             factor_dtype = torch.float32
     label = "f64" if factor_dtype is None else "f64-data/f32-factor"
-    out = _timed(stages, label, run(A, b, c, _ub(ub, device, f64), 0.0,
-                                    factor_dtype, knobs, compensated), st)
-    return _hsd.finish_state(out, max_iter)
+    out = _timed(stages, label, run(A, b, c, tail(f64), 0.0,
+                                    factor_dtype, knobs, compensated), st,
+                 cols)
+    status, x, y, w, z, iters = _hsd.finish_state(out, max_iter)
+    if cols is not None:
+        x, z = cols.gather(x), cols.gather(z)
+    return status, x, y, w, z, iters
 
 
 def solve_batch_intpt(A, b, c, *,

@@ -2,6 +2,8 @@
 
     python3 vanderbei_tpu_torch/tools/profile_solves.py   # warm solves + trace
     python3 vanderbei_tpu_torch/tools/ab_solve.py ...     # two trees, A/B
+    python3 vanderbei_tpu_torch/tools/mesh_solve.py ...   # tensor-parallel
 
-Both read the smoke MPS files that chip_smoke.py writes under _build/smoke.
+The first two read the smoke MPS files that chip_smoke.py writes under
+_build/smoke; mesh_solve.py takes an MPS file or makes the smoke LP.
 """
