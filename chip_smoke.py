@@ -16,13 +16,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
    transposed views), intpt's dual-form A' (4096, 6656), the QP's
    dual-form A' (1024, 2048) and the two batched solves' launches, the
    hsd class (16, 1024, 1536) and intpt's transposed class A'
-   (8, 1024, 1536), and the mesh phases' column shards, the smoke LP's
-   head on one of 2 model ranks (2560, 2048) and the phase-10 class on
-   one rank of a (2, 2) mesh (8, 1024, 768); kernel and plain times, the
-   kernel's TFLOP/s of lower-tile work and its bound (see bound()), at
-   (2560, 4096) (TMA copies), its transposed view (TMA), (1000, 1537)
-   (cp.async copies), the dual-form A' of intpt and of the QP, the two
-   batched classes and the two shards (all TMA).
+   (8, 1024, 1536), and the mesh phases' shards, the smoke LP's head on
+   one of 2 model ranks (2560, 2048), the phase-10 class on one rank of a
+   (2, 2) mesh (8, 1024, 768), on one of 2 batch ranks (8, 1024, 1536)
+   and on one of 4 (4, 1024, 1536), tools/multichip_scaling.py --ranks 4's;
+   kernel and plain times, the kernel's TFLOP/s of lower-tile work and its
+   bound (see bound()), at (2560, 4096) (TMA copies), its transposed view
+   (TMA), (1000, 1537) (cp.async copies), the dual-form A' of intpt and of
+   the QP, the two batched classes and the four shards (all TMA).
 4. solve: a seeded 2000 x 4000 bounded LP (200 equality rows, 2% dense),
    written to MPS and solved through the CLI on the card; it must be
    OPTIMAL within 1e-8 of scipy's HiGHS on the LP read back from the file,
@@ -77,14 +78,31 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (gloo): every lane OPTIMAL within 1e-8 of HiGHS, each lane's
    iterations within 2 of phase 10's, each rank one launch per f32
    iteration at (8, 1024, 768).
-16. every (shape, layout) the solves of phases 4-6, 10-11 and 13-15
+16. mesh-dd: phase 4's MPS solved tensor-parallel in precision "dd"
+   (column sums compensated across the ranks, ColumnShards.sum2), 2 ranks
+   sharing the card (gloo), cold then warm, then in "f64" on the same
+   mesh: OPTIMAL with the same bits on both ranks, within 1 iteration and
+   1e-12 of a single-card "dd" solve of the LP and within 1e-8 of HiGHS;
+   the all-reduces by method beside the f64 solve's, the same once 5 a
+   refinement pass and 1 a factor retry are set aside (when the
+   iterations agree); no kernel launch ("dd" has no f32 stage).
+17. dp-scaling: tools/multichip_scaling.py's runs of phase 10's class on
+   2 ranks sharing the card (gloo), a (2, 1) mesh: one card, then the
+   "batch" ranks, a warm-up and 3 jiggled reps each, then a profiled
+   rep; every lane OPTIMAL with the single run's statuses and iterations,
+   the warm-up's equal to phase 10's; each rank one launch per f32
+   iteration at (8, 1024, 1536); t_single_s, t_sharded_s, overhead_frac,
+   each rank's device-busy share and the tool's JSON line.
+18. every (shape, layout) the solves of phases 4-6, 10-11 and 13-17
    handed the kernel (the ranks' too) is one that phase 3 held against
-   the plain version, or the run fails; then the kernels' JSON line
-   (launches split by path: hsd, intpt, qp, batch-hsd, batch-intpt,
-   mesh-tp, mesh-nccl, mesh-batch), the card line, and
-   {"ok": true, "device": {...}} last.
+   the plain version, or the run fails; then phases 7-9, the total time,
+   the kernels' JSON line (launches split by path: hsd, intpt, qp,
+   batch-hsd, batch-intpt, mesh-tp, mesh-nccl, mesh-batch, mesh-dd,
+   dp-scaling), the card line, and {"ok": true, "device": {...}} last.
 
-A rank that fails or outlasts its limit fails the script.
+Phases 13, 16 and 17 share one spawn of their 2 ranks (run_pair), whose
+records each phase then checks.  A rank that fails or outlasts its limit
+fails the script.
 """
 
 from __future__ import annotations
@@ -113,6 +131,7 @@ F32_3XTF32_FLOPS = 495e12 / 3
 OBJ_RTOL = 1e-8
 MESH_RTOL = 1e-9           # a tensor-parallel solve against phase 4's
 NCCL_RTOL = 1e-12          # ... on a world of 1
+MESH_DD_RTOL = 1e-12       # a tensor-parallel "dd" solve against one card's
 MESH_ITERS = 2             # two shards reassociate the f32 sprint's sums
 RANK_TIMEOUT_S = 300
 INTPT_RTOL = 1e-6          # intpt stops at ipm_eps = 1e-6 (core/config.py)
@@ -176,7 +195,11 @@ def check_kernel(syrk, torch):
              # the mesh phases (13, 15): a rank's column shard of the
              # smoke LP's head and of the phase-10 class
              ("tp-shard", (2560, 2048), {}),
-             ("dp-tp-shard", (8, 1024, 768), {})]
+             ("dp-tp-shard", (8, 1024, 768), {}),
+             # phase 17: a rank's 8 lanes of the phase-10 class, all columns;
+             # tools/multichip_scaling.py --ranks 4: a rank's 4 lanes
+             ("dp-shard", (8, 1024, 1536), {}),
+             ("dp-shard-4", (4, 1024, 1536), {})]
     head_err = None
     checked = set()
     for label, shape, kw in cases:
@@ -230,7 +253,9 @@ def check_kernel(syrk, torch):
             ("batch-hsd", (16, 1024, 1536), {}, "tma"),
             ("batch-intpt", (8, 1024, 1536), {"transposed": True}, "tma"),
             ("tp-shard", (2560, 2048), {}, "tma"),
-            ("dp-tp-shard", (8, 1024, 768), {}, "tma")):
+            ("dp-tp-shard", (8, 1024, 768), {}, "tma"),
+            ("dp-shard", (8, 1024, 1536), {}, "tma"),
+            ("dp-shard-4", (4, 1024, 1536), {}, "tma")):
         X, s, e = inputs(shape, **kw)
         if syrk.route(X) != want:
             fail(f"{label} {tuple(X.shape)} took {syrk.route(X)}, not {want}")
@@ -635,19 +660,16 @@ def rank_runs(torch, device, run, summarize):
     run), warm, and warm under torch.profiler.  Returns one record per
     run: summarize(run()), its seconds, its kernel launches by (shape,
     layout), and for the profiled run the device-busy share."""
-    from torch.profiler import ProfilerActivity, profile
     from vanderbei_tpu_torch.ops import syrk
-    from vanderbei_tpu_torch.utils.profiling import busy_share
+    from vanderbei_tpu_torch.utils.profiling import busy_share, device_trace
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                           else [])
     runs = []
     for label in ("cold", "warm", "profiled"):
         syrk.reset_counts()
         sync()
-        prof = (profile(activities=activities, acc_events=True)
-                if label == "profiled" else contextlib.nullcontext())
+        prof = (device_trace(cuda) if label == "profiled"
+                else contextlib.nullcontext())
         with prof:
             t0 = time.perf_counter()
             out = run()
@@ -674,6 +696,28 @@ def mesh_tp_rank(rank, world, device, mps):
         torch, device, lambda: vtt.solve(lp, device=device, mesh=mesh),
         lambda sol: dict(status=sol.status, iterations=sol.iterations,
                          obj=sol.primal_obj, stages=sol.stages))
+
+
+def pair_rank(rank, world, device, mps, work):
+    """Phases 13, 16 and 17 on one of the ranks that share the card, in one
+    spawn: mesh-tp's runs, mesh-dd's, and tools/multichip_scaling's on
+    phase 10's class."""
+    from vanderbei_tpu_torch.tools import multichip_scaling as mcs
+    return dict(tp=mesh_tp_rank(rank, world, device, mps),
+                dd=mesh_dd_rank(rank, world, device, mps),
+                dp=mcs.scaling_rank(rank, world, device, dp_class, (work,)))
+
+
+def run_pair(mps, work, world=2, device="cuda:0"):
+    """pair_rank on `world` ranks on `device` under gloo: each phase's
+    records ("tp", "dd", "dp") in rank order, and the seconds from the
+    spawn to the end."""
+    from vanderbei_tpu_torch.parallel.distributed import run_ranks
+    t0 = time.perf_counter()
+    results = run_ranks(pair_rank, world, "gloo", device,
+                        timeout_s=RANK_TIMEOUT_S, args=(mps, work))
+    return ({k: [r[k] for r in results] for k in ("tp", "dd", "dp")},
+            time.perf_counter() - t0)
 
 
 def mesh_batch_rank(rank, world, device, work):
@@ -715,16 +759,11 @@ def collectives(stages, iterations):
             f"{100 * share:.1f} % of the stages' wall in all-reduce calls")
 
 
-def check_mesh_tp(card, mps, ref, obj4, it4, seen, world=2, device="cuda:0",
-                  shard=((2560, 2048), "k-contiguous")):
-    """Phase 13: returns the kernel's launches, summed over the ranks, in
-    the checked (cold) solve."""
-    from vanderbei_tpu_torch.parallel.distributed import run_ranks
-    t0 = time.perf_counter()
-    results = run_ranks(mesh_tp_rank, world, "gloo", device,
-                        timeout_s=RANK_TIMEOUT_S, args=(mps,))
-    t_all = time.perf_counter() - t0
-    runs = results
+def check_mesh_tp(card, runs, t_all, mps, ref, obj4, it4, seen, world=2,
+                  device="cuda:0", shard=((2560, 2048), "k-contiguous")):
+    """Phase 13 on the ranks' mesh_tp_rank records (run_pair): returns the
+    kernel's launches, summed over the ranks, in the checked (cold)
+    solve."""
     for rank_runs_ in runs:
         for rec in rank_runs_:
             seen.update(rec["launch_shapes"])
@@ -762,8 +801,8 @@ def check_mesh_tp(card, mps, ref, obj4, it4, seen, world=2, device="cuda:0",
           f"kernel launches by rank {[c['launch_shapes'] for c in cold]}; "
           f"wall of rank 0: {walls} (one solve() on the card alone: cold "
           f"{single[0]:.3f} s, warm {single[1]:.3f} s); device busy in the "
-          f"profiled solve: {busy}; {traffic}; spawn to end {t_all:.2f} s",
-          flush=True)
+          f"profiled solve: {busy}; {traffic}; spawn to end of phases 13, "
+          f"16 and 17 {t_all:.2f} s", flush=True)
     if sol["status"] != 0:
         fail(f"mesh-tp: status {sol['status']}")
     if not (rel4 <= MESH_RTOL and rel <= OBJ_RTOL):
@@ -870,6 +909,154 @@ def check_mesh_batch(card, work, refs, lane_iters, seen, world=4,
     return sum(r["launch_shapes"][shard] for r in cold)
 
 
+def mesh_dd_rank(rank, world, device, mps):
+    """Phase 16 on one rank: the LP of `mps` tensor-parallel over `world`
+    model ranks in precision "dd", cold then warm, then in "f64" (the
+    collectives' twin).  Each record: the solution, its seconds, the
+    kernel's launches by (shape, layout)."""
+    import torch
+    import vanderbei_tpu_torch as vtt
+    from vanderbei_tpu_torch.ops import syrk
+    from vanderbei_tpu_torch.parallel.mesh import make_mesh
+    lp = vtt.read_mps(mps)
+    mesh = make_mesh(world, model_parallel=world, device_type=device.type)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    runs = []
+    for label, precision in (("cold", "dd"), ("warm", "dd"), ("f64", "f64")):
+        syrk.reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        sol = vtt.solve(lp, config=vtt.SolverConfig(precision=precision),
+                        device=device, mesh=mesh)
+        sync()
+        runs.append(dict(label=label, seconds=time.perf_counter() - t0,
+                         status=sol.status, iterations=sol.iterations,
+                         obj=sol.primal_obj, x=sol.x, stages=sol.stages,
+                         launch_shapes=dict(syrk.launch_shapes)))
+    return runs
+
+
+def collective_ops(stage):
+    """A stage's all-reduces by method (ColumnShards.counts), and its
+    all-reduces less 5 a refinement pass (4 sums and the residual's MAX)
+    and 1 a factor retry (an ANY): with the same iterations, the same
+    number for every precision whose collectives pair one for one."""
+    ops = {k[len("all_reduces_"):]: v for k, v in stage.items()
+           if k.startswith("all_reduces_") and v}
+    core = (stage["all_reduces"] - 5 * stage["all_reduces_max"]
+            - stage["all_reduces_any"])
+    return ops, core
+
+
+def check_mesh_dd(card, runs, tp_stages, mps, ref, world=2,
+                  device="cuda:0"):
+    """Phase 16 on the ranks' mesh_dd_rank records (run_pair): precision
+    "dd" tensor-parallel against the single-card "dd" solve of the same
+    LP, its traffic beside the f64 mesh solve's and mesh-tp's f64 stage
+    (tp_stages: phase 13's stage records); returns the kernel's launches,
+    summed over the ranks (none: "dd" has no f32 stage)."""
+    import numpy as np
+    import torch
+    import vanderbei_tpu_torch as vtt
+    lp = vtt.read_mps(mps)
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single = vtt.solve(lp, config=vtt.SolverConfig(precision="dd"),
+                       device=device)
+    t_single = time.perf_counter() - t1
+    cold, warm, f64 = runs[0]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            if not ((a["status"], a["iterations"], a["obj"])
+                    == (b["status"], b["iterations"], b["obj"])
+                    and np.array_equal(a["x"], b["x"])):
+                fail(f"mesh-dd: the ranks disagree in the {a['label']} "
+                     f"solve")
+    rel1 = abs(cold["obj"] - single.primal_obj) / max(1.0,
+                                                      abs(single.primal_obj))
+    rel = abs(cold["obj"] - ref) / max(1.0, abs(ref))
+    (dd_stage,), (f64_stage,) = cold["stages"], f64["stages"]
+    dd_ops, dd_core = collective_ops(dd_stage)
+    f64_ops, f64_core = collective_ops(f64_stage)
+    launches = [r[0]["launch_shapes"] for r in runs]
+    tp_f64 = [s for s in tp_stages if s["precision"] == "f64"]
+    print(f"mesh-dd on {card}: {world} ranks on {device} (gloo), status "
+          f"{cold['status']} on every rank (the same bits), obj "
+          f"{cold['obj']!r} vs the single-card dd solve "
+          f"{single.primal_obj!r} rel {rel1:.3e}, vs HiGHS rel {rel:.3e}; "
+          f"{cold['iterations']} iterations (single dd: "
+          f"{single.iterations}, f64 mesh: {f64['iterations']}); "
+          f"all-reduces per iteration: dd "
+          f"{collectives([dd_stage], cold['iterations'])}, {dd_ops}; f64 "
+          f"{collectives([f64_stage], f64['iterations'])}, {f64_ops}; "
+          f"mesh-tp's f64 stage "
+          f"{collectives(tp_f64, sum(s['iterations'] for s in tp_f64))}; less "
+          f"refinement passes and retries: dd {dd_core}, f64 {f64_core}; "
+          f"wall: cold {cold['seconds']:.3f} s, warm {warm['seconds']:.3f} "
+          f"s, f64 mesh {f64['seconds']:.3f} s; single-card dd solve "
+          f"{t_single:.3f} s; kernel launches by rank {launches}",
+          flush=True)
+    if cold["status"] != 0 or warm["status"] != 0:
+        fail(f"mesh-dd: status {cold['status']}, {warm['status']}")
+    if abs(cold["iterations"] - single.iterations) > 1:
+        fail(f"mesh-dd: {cold['iterations']} iterations against the single "
+             f"dd solve's {single.iterations}")
+    if not (rel1 <= MESH_DD_RTOL and rel <= OBJ_RTOL):
+        fail(f"mesh-dd: objective {rel1:.3e} from the single dd solve's, "
+             f"{rel:.3e} from HiGHS")
+    if dd_ops.get("sum2", 0) <= 0 or "sum2" in f64_ops:
+        fail(f"mesh-dd: compensated sums dd {dd_ops}, f64 {f64_ops}")
+    if (cold["iterations"] == f64["iterations"] and dd_core != f64_core):
+        fail(f"mesh-dd: dd issued other collectives than f64: {dd_ops} "
+             f"against {f64_ops}")
+    if any(launches):
+        fail(f"mesh-dd launched the kernel: {launches}")
+    return sum(sum(n.values()) for n in launches)
+
+
+def dp_class(work):
+    """Phase 10's class for tools/multichip_scaling: (key, arrays)."""
+    key, _, arrays = hsd_class(work)
+    return key, arrays
+
+
+def check_dp_scaling(card, results, lane_iters, seen, world=2,
+                     device="cuda:0",
+                     shard=((8, 1024, 1536), "k-contiguous")):
+    """Phase 17 on the ranks' tools/multichip_scaling records (run_pair),
+    2 ranks sharing the card (gloo); returns the kernel's launches, summed
+    over the ranks, in the first sharded solve."""
+    import numpy as np
+    from vanderbei_tpu_torch.tools import multichip_scaling as mcs
+    line, faults = mcs.summary(results, "gloo", card)
+    for r in results:
+        for rec in r["single"] + r["sharded"]:
+            seen.update(rec["launches"])
+    first = [r["sharded"][0] for r in results]
+    iters = first[0]["iters"]
+    print(f"dp-scaling on {card}: {world} ranks on {device} (gloo), "
+          f"batch mesh ({world}, 1); statuses {first[0]['status'].tolist()}; "
+          f"iterations {iters.tolist()} (phase 10 "
+          f"{np.asarray(lane_iters).tolist()}); t_single_s "
+          f"{line['t_single_s']:.4f}, t_sharded_s {line['t_sharded_s']:.4f},"
+          f" overhead_frac {line['overhead_frac']:.4f}; device busy by rank "
+          f"{[round(100 * b, 1) for b in line['busy']]} %; f32 iterations "
+          f"by rank {[r['f32_iters'] for r in first]}, kernel launches by "
+          f"rank {[r['launches'] for r in first]}", flush=True)
+    print(f"dp-scaling: {json.dumps(line)}", flush=True)
+    if faults:
+        fail(f"dp-scaling: {faults}")
+    if not np.array_equal(iters, np.asarray(lane_iters)):
+        fail(f"dp-scaling: iterations {iters.tolist()} against phase 10's "
+             f"{np.asarray(lane_iters).tolist()}")
+    if any(r["f32_iters"] <= 0 or r["launches"] != {shard: r["f32_iters"]}
+           for r in first):
+        fail(f"dp-scaling: not one launch at {shard} per f32 iteration on "
+             f"each rank: {[(r['f32_iters'], r['launches']) for r in first]}")
+    return sum(r["launches"][shard] for r in first)
+
+
 def check_dd_metrics(work, device="cuda", m=500, n=1000):
     """Phase 7."""
     import numpy as np
@@ -955,6 +1142,7 @@ def check_native(mps):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -980,28 +1168,50 @@ def main() -> int:
     if hgmma == 0:
         fail("the built kernel has no wgmma (HGMMA) instruction")
 
+    # each phase's end, in seconds from the start, for the total's split
+    ends = {}
+    end = lambda name: ends.setdefault(
+        name, round(time.perf_counter() - t_start, 1))
     err, times, checked = check_kernel(syrk, torch)
+    end("kernel")
     seen = record_kernel_shapes(syrk)
     by_path = {}
     by_path["hsd"], ref4, mps, obj4, it4 = solve_end_to_end(syrk, torch)
+    end("solve")
     by_path["intpt"] = check_intpt(syrk, mps)
+    end("intpt")
     work = os.path.dirname(mps)
     by_path["qp"] = check_qp(syrk, work)
+    end("qp")
     by_path["batch-hsd"], lane_iters, lane_refs = check_batch(
         syrk, torch, card, work, "hsd",
         [(560 + 4 * j, 1100 + 9 * j, j) for j in range(16)],
         want_key=("s", 1024, 1536, 1536))
+    end("batch-hsd")
     by_path["batch-intpt"], _, _ = check_batch(
         syrk, torch, card, work, "intpt",
         [(400 + 10 * j, 800 + 20 * j, j) for j in range(8)],
         want_key=(1536, 1024), rtol=INTPT_RTOL, ranged=True)
+    end("batch-intpt")
     check_batch(syrk, torch, card, work, "pd",
                 [(300 + 10 * j, 600 + 20 * j, j) for j in range(4)],
                 want_key=(1024, 1024))
-    by_path["mesh-tp"] = check_mesh_tp(card, mps, ref4, obj4, it4, seen)
+    end("batch-pd")
+    pair, t_pair = run_pair(mps, work)
+    by_path["mesh-tp"] = check_mesh_tp(card, pair["tp"], t_pair, mps, ref4,
+                                       obj4, it4, seen)
+    end("mesh-tp")
     by_path["mesh-nccl"] = check_mesh_nccl(syrk, torch, mps, obj4, it4)
+    end("mesh-nccl")
     by_path["mesh-batch"] = check_mesh_batch(card, work, lane_refs,
                                              lane_iters, seen)
+    end("mesh-batch")
+    by_path["mesh-dd"] = check_mesh_dd(card, pair["dd"],
+                                       pair["tp"][0][0]["stages"], mps, ref4)
+    end("mesh-dd")
+    by_path["dp-scaling"] = check_dp_scaling(card, pair["dp"], lane_iters,
+                                             seen)
+    end("dp-scaling")
     unchecked = seen - checked
     print(f"kernel shapes of the solves: {sorted(seen)}; each held against "
           f"the plain version in phase 3: {not unchecked}", flush=True)
@@ -1009,8 +1219,14 @@ def main() -> int:
         fail(f"the solves gave the kernel shapes phase 3 did not check: "
              f"{sorted(unchecked)}")
     check_dd_metrics(work)
+    end("dd")
     check_simplex(work)
+    end("simplex")
     check_native(mps)
+    end("native")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s; phases ended at (s): "
+          f"{ends}", flush=True)
 
     # the kernel's line: its times at the hsd head, the other timed
     # layouts beside them; no one PyTorch call computes X diag(s) X' +

@@ -2,12 +2,14 @@
 gather_lanes on a (2, 2) mesh of 4 CPU ranks (gloo), against the JAX
 package's solve_batch_hsd on shard_batch'd arrays over make_mesh(8, 2).
 
-One spawn runs both classes (torch_mesh_ranks.batch_rank): a dense class
+One spawn runs every case (torch_mesh_ranks.batch_rank): a dense class
 of 8 raw 24 x 64 lanes and a structured (UbTail) class of 8 seeded bounded
-LPs, ("s", 64, 128, 128).  Bars, lane by lane: the same status and
-iterations as JAX's sharded solve and as the port's single-device batch,
-the objective c'x within 1e-10 (relative, floor 1); every rank assembles
-the same class.  A rank's block is the block JAX puts on the device of its
+LPs, ("s", 64, 128, 128), both mixed, and the dense class again in f64
+with compensated ("dd") sums, whose column sums go through
+ColumnShards.sum2.  Bars, lane by lane: the same status and iterations as
+JAX's sharded solve and as the port's single-device batch, the objective
+c'x within 1e-10 (relative, floor 1); every rank assembles the same
+class.  A rank's block is the block JAX puts on the device of its
 mesh coordinates.
 """
 
@@ -26,6 +28,7 @@ import torch_mesh_ranks as ranks
 torch.set_num_threads(1)
 
 KINDS = ("dense", "structured")
+CASES = tuple(ranks.BATCH_CASES)
 LANES = range(8)
 _cache = {}
 
@@ -37,28 +40,30 @@ def _ranks():
     return _cache["ranks"]
 
 
-def _jax(kind):
-    """JAX's solve of the class, batch-sharded 4 ways and A's columns 2
-    ways over make_mesh(8, 2)."""
-    if kind not in _cache:
+def _jax(case):
+    """JAX's solve of the case's class, batch-sharded 4 ways and A's
+    columns 2 ways over make_mesh(8, 2)."""
+    if case not in _cache:
+        kind, kw = ranks.BATCH_CASES[case]
         A, b, c, ub = ranks.batch_class(kind)
         arrays = [A, b, c] + ([] if ub is None else [ub.idx2, ub.w2])
         placed = jb.shard_batch(arrays, jax_make_mesh(8, model_parallel=2),
                                 model_axis_dims=(2, None, 1))
         A_s, b_s, c_s = placed[:3]
         ub_s = None if ub is None else JUbTail(*placed[3:])
-        out = jb.solve_batch_hsd(A_s, b_s, c_s, ub=ub_s)
-        _cache[kind] = [np.asarray(t) for t in out]
-    return _cache[kind]
+        out = jb.solve_batch_hsd(A_s, b_s, c_s, ub=ub_s, **kw)
+        _cache[case] = [np.asarray(t) for t in out]
+    return _cache[case]
 
 
-def _single(kind):
-    """The port's single-device batched solve of the class."""
-    key = kind, "single"
+def _single(case):
+    """The port's single-device batched solve of the case's class."""
+    key = case, "single"
     if key not in _cache:
+        kind, kw = ranks.BATCH_CASES[case]
         A, b, c, ub = ranks.batch_class(kind)
         _cache[key] = [t.numpy() for t in tb.solve_batch_hsd(
-            A, b, c, ub=ub, device="cpu")]
+            A, b, c, ub=ub, device="cpu", **kw)]
     return _cache[key]
 
 
@@ -67,15 +72,21 @@ def _objective(c, x):
 
 
 @pytest.mark.parametrize("lane", LANES)
-@pytest.mark.parametrize("kind", KINDS)
-def test_sharded_batch_lane(kind, lane):
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_batch_lane(case, lane):
+    kind, kw = ranks.BATCH_CASES[case]
     A, b, c, ub = ranks.batch_class(kind)
-    outs = [out[kind] for out in _ranks()]
+    outs = [out[case] for out in _ranks()]
     st, x, _, _, _, it = outs[0]
     for other in outs[1:]:
         for a, o in zip(outs[0], other):
             np.testing.assert_array_equal(a, o)
-    for ref in (_jax(kind), _single(kind)):
+    # only the compensated case completes its column sums by sum2
+    compensated = kw.get("compensated", False)
+    for out in _ranks():
+        assert all((s["all_reduces_sum2"] > 0) == compensated
+                   for s in out[case, "stages"])
+    for ref in (_jax(case), _single(case)):
         assert st[lane] == ref[0][lane] == 0
         assert it[lane] == ref[5][lane]
         want = _objective(c[lane], ref[1][lane])

@@ -196,7 +196,11 @@ def test_import_loads_no_jax():
             "vanderbei_tpu_torch.parallel.distributed, "
             "vanderbei_tpu_torch.evaluate, vanderbei_tpu_torch.sweep, "
             "vanderbei_tpu_torch.io.netlib, "
-            "vanderbei_tpu_torch.utils.profiling; "
+            "vanderbei_tpu_torch.utils.profiling, "
+            "vanderbei_tpu_torch.tools.mesh_solve, "
+            "vanderbei_tpu_torch.tools.multichip_scaling, "
+            "vanderbei_tpu_torch.tools.profile_solves, "
+            "vanderbei_tpu_torch.tools.ab_solve, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.split('.')[0] == 'vanderbei_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

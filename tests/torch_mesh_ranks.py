@@ -11,9 +11,10 @@ import torch
 
 import vanderbei_tpu_torch as vtt
 from vanderbei_tpu_torch.core.builder import LPBuilder
+from vanderbei_tpu_torch.ops import quad
 from vanderbei_tpu_torch.parallel import batch as tb
 from vanderbei_tpu_torch.parallel.distributed import (
-    ColumnShards, place_column_sharded, sharded_kkt_solve,
+    ColumnShards, column_shard, place_column_sharded, sharded_kkt_solve,
     sharded_normal_matrix)
 from vanderbei_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
                                                replicated)
@@ -21,12 +22,16 @@ from vanderbei_tpu_torch.parallel.mesh import (batch_sharding, make_mesh,
 # the tensor-parallel solves: LP, method, precision
 LP_KINDS = ("dense", "ub")
 METHODS = ("hsd", "hsdls")
-PRECISIONS = ("f64", "mixed")
+PRECISIONS = ("f64", "mixed", "dd")
 SOLVE_CASES = [(k, m, p) for k in LP_KINDS for m in METHODS
                for p in PRECISIONS]
 NON_HSD = ("intpt", "pd", "twophase")
 TIME_LIMIT_CASES = {"loop": dict(precision="f64"),
                     "retry": dict(precision="mixed", max_iter=1)}
+# the sharded batches: case -> (class kind, solve_batch_hsd keywords)
+BATCH_CASES = {"dense": ("dense", {}), "structured": ("structured", {}),
+               "dense-dd": ("dense", dict(precision="f64",
+                                          compensated=True))}
 
 
 def tp_lp(kind="dense", n=128, m=24, seed=7):
@@ -104,12 +109,51 @@ def tp_rank(rank, world, device):
             vtt.solve(tp_lp(), method=method, device=device, mesh=mesh)
         except ValueError as e:
             out[method] = str(e)
-    try:
-        vtt.solve(tp_lp(), config=vtt.SolverConfig(precision="dd"),
-                  device=device, mesh=mesh)
-    except ValueError as e:
-        out["dd"] = str(e)
     return out
+
+
+def cancellation_operands():
+    """Rows of A (4 x 16), a stack of two right-hand sides X (16 x 2) and
+    two lanes of a dot product (a, b, each 2 x 16) whose large terms
+    cancel between the ranks of a 2- or 4-way split of the 16 columns.
+    Every term, product error and partial sum is a short dyadic number, so
+    a compensated reduction gives the exact sum in any order: on one
+    device and on column shards alike.  In rows 0-2 and both lanes a large
+    term shares its rank with small ones, whose sum its rounded partial
+    loses: summed over the ranks, those come out wrong in any order."""
+    n = 16
+    A = np.zeros((4, n))
+    A[0, [0, 1, 14, 15]] = [1e16, 0.5, 0.5, -1e16]             # 1
+    A[1, [0, 3, 8, 12]] = [2.0 ** 60, 3.0, -2.0 ** 60, -1.25]   # 1.75
+    A[2, [2, 3, 12, 13]] = [2.0 ** 55, 0.25, 0.125, -2.0 ** 55]  # 0.375
+    A[3] = np.arange(1.0, n + 1)                                # 136
+    X = np.stack([np.ones(n), np.full(n, 2.0)], axis=1)
+    e = 1.0 + 2.0 ** -30       # e * e = 1 + 2^-29 + 2^-60 rounds
+    a, b = np.zeros((2, n)), np.zeros((2, n))
+    a[0, [0, 15]], b[0, [0, 15]] = [e, -(1.0 + 2.0 ** -29)], [e, 1.0]
+    a[1, [4, 5, 11]], b[1, [4, 5, 11]] = [1e16, 1.5, -1e16], 1.0
+    return A, X, a, b
+
+
+def dd_sum_rank(rank, world, device):
+    """The cancellation operands' compensated products on this rank's
+    columns completed by ColumnShards.sum2, beside the rounded per-rank
+    products summed by ColumnShards.sum, and the bytes each carried."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(world, model_parallel=world, device_type="cpu")
+    A, X, a, b = (torch.from_numpy(t) for t in cancellation_operands())
+    cols = ColumnShards.split(mesh.get_group("model"), A.shape[1])
+    A_k, a_k, b_k = (column_shard(t, cols) for t in (A, a, b))
+    X_k = column_shard(X.mT, cols).mT
+    sharded = cols.sum2(quad.matvec2_dd(A_k, X_k),
+                        quad.matvec2_dd(A_k, X_k[:, 0]),
+                        quad.dot2_dd(a_k, b_k))
+    counts2 = cols.counts()
+    rounded = cols.sum(quad.matvec2(A_k, X_k), quad.matvec2(A_k, X_k[:, 0]),
+                       quad.dot2(a_k, b_k))
+    return dict(sharded=[t.numpy() for t in sharded],
+                rounded=[t.numpy() for t in rounded],
+                sum2=counts2, sum=cols.counts(since=counts2))
 
 
 def raise_on_rank_1(rank, world, device):
@@ -152,21 +196,24 @@ def batch_class(kind):
 
 def batch_rank(rank, world, device):
     """shard_batch + solve_batch_hsd + gather_lanes on a (2, 2) mesh, for
-    both classes; also the rank's blocks and batch_sharding/replicated."""
+    each of BATCH_CASES (with the all-reduces of its stages by method);
+    also the rank's blocks and batch_sharding/replicated."""
     torch.set_num_threads(1)
     mesh = make_mesh(world, model_parallel=2, device_type="cpu")
     out = {"coords": (mesh.get_local_rank("batch"),
                       mesh.get_local_rank("model"))}
-    for kind in ("dense", "structured"):
+    for case, (kind, kw) in BATCH_CASES.items():
         A, b, c, ub = batch_class(kind)
         arrays = [A, b, c] + ([] if ub is None else [ub.idx2, ub.w2])
         blocks = tb.shard_batch(arrays, mesh, model_axis_dims=(2, None, 1))
         out[kind, "blocks"] = blocks
         A_k, b_k, c_k = blocks[:3]
         ub_k = None if ub is None else tb.UbTail(*blocks[3:])
+        stages = []
         res = tb.solve_batch_hsd(A_k, b_k, c_k, ub=ub_k, device=device,
-                                 mesh=mesh)
-        out[kind] = [t.numpy() for t in tb.gather_lanes(res, mesh)]
+                                 mesh=mesh, stages=stages, **kw)
+        out[case] = [t.numpy() for t in tb.gather_lanes(res, mesh)]
+        out[case, "stages"] = stages
     lanes = torch.arange(8.0)
     out["batch_sharding"] = batch_sharding(mesh, lanes).numpy()
     out["replicated"] = replicated(mesh, torch.full((3,), float(rank))

@@ -27,7 +27,10 @@ stacked into one SUM all-reduce, the ratio tests' maxima over n into one
 MAX (MIN for the long step's linesearch), Ax is a partial sum completed
 with the residual block's dots, and the finite-iterate guard is agreed
 over the group; mu's denominators take the global n.  So every rank holds
-the same status, step and flags, and every host read agrees.
+the same status, step and flags, and every host read agrees.  Under
+precision "dd" the n-space sums are compensated across the ranks too
+(ColumnShards.sum2); the pause test's mu after the loop (_mu) is a plain
+sum with or without it, as the JAX package's is.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..core.status import Status
 from ..ops.kkt import (dot as _dot, kkt_factor, kkt_solve, local,
                        mv as _mv, UbTail, tail_matvec, tail_rmatvec,
                        where_lanes)
-from ..ops.quad import dot2, matvec2
+from ..ops.quad import DD, dot2, dot2_dd, matvec2, matvec2_dd
 
 DEFAULT_MAX_ITER = 200      # hsd.c:25
 DEFAULT_MAX_ITER_LS = 600   # hsdls.c:25
@@ -180,14 +183,15 @@ def make_step(A, b, c, *,
     inner products go through quad.matvec2 / quad.dot2 (twice the working
     precision), and so do the KKT refinement residuals.  cols: column
     shards (module docstring), with ub the rank's own tail
-    (ColumnShards.tail); not with compensated."""
+    (ColumnShards.tail); with compensated, each n-space sum (a dot over
+    the rank's columns, Ax) is left unrounded (quad's *_dd forms) and
+    completed by ColumnShards.sum2, while the m-space dots, whole on every
+    rank, and A'y, column-local, stay local."""
     m, n = A.shape[-2:]
     if ub is not None:
         m = m + ub.idx2.shape[-1]    # y/w span the implicit tail rows too
     if cols is None:
         nsum = nmax = nmin = nall = local
-    elif compensated:
-        raise ValueError("precision 'dd' is not ported to column shards")
     else:
         nsum, nmax, nmin, nall = cols.sum, cols.max, cols.min, cols.all
         n = cols.n
@@ -207,11 +211,18 @@ def make_step(A, b, c, *,
     vmax = lambda t: t.amax(dim=-1, keepdim=batched)
     vmin = lambda t: t.amin(dim=-1, keepdim=batched)
     base_mv = matvec2 if compensated else _mv
+    # the n-space sums: ndot and mv give this rank's partial sums and
+    # nsum completes them (under cols with compensated: unrounded, by sum2)
+    ndot, row_mv = dot, base_mv
+    if compensated and cols is not None:
+        nsum = cols.sum2
+        ndot = lambda a, b: DD(*(col(t) for t in dot2_dd(a, b)))
+        row_mv = matvec2_dd
     if ub is not None:
-        mv = lambda M, v: tail_matvec(M, ub, v, base_mv)
+        mv = lambda M, v: tail_matvec(M, ub, v, row_mv)
         mvT = lambda M, v: tail_rmatvec(M, ub, v, base_mv)
     else:
-        mv = base_mv
+        mv = row_mv
         mvT = lambda M, v: base_mv(M.mT, v)
 
     def decide(s: HsdState) -> _Decision:
@@ -221,8 +232,8 @@ def make_step(A, b, c, *,
         # the n-space sums of the residual block, in one reduction
         sigma = -mvT(A, y) + c * phi + z
         zx, primal_obj, ss, cc, xs, ax = nsum(
-            dot(z, x), dot(c, x), dot(sigma, sigma), dot(c, c),
-            dot(x, sigma), mv(A, x))
+            ndot(z, x), ndot(c, x), ndot(sigma, sigma), ndot(c, c),
+            ndot(x, sigma), mv(A, x))
         mu = (zx + dot(w, y) + phi * psi) / (n + m + 1)
         if long_step:
             delta = 2.0 * (1.0 - beta)                       # hsdls.c:113
@@ -277,7 +288,7 @@ def make_step(A, b, c, *,
         if trace:
             _trace_row(s.iter, primal_obj / phi + f,
                        torch.sqrt(dot(rho, rho)) / phi, dual_obj / phi + f,
-                       torch.sqrt(nsum(dot(sigma, sigma))) / phi, mu)
+                       torch.sqrt(nsum(ndot(sigma, sigma))) / phi, mu)
 
         # the lanes whose step is kept: live and still undecided (all of
         # them, when the caller has read that a single LP steps)
@@ -299,7 +310,7 @@ def make_step(A, b, c, *,
             def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
                 """Fold a (delta, second-order) Newton system through the
                 shared f/g combination (hsd.c:230-238)."""
-                cfx, cgx = nsum(dot(c, fx), dot(c, gx))
+                cfx, cgx = nsum(ndot(c, fx), ndot(c, gx))
                 dphi = ((cfx - dot(b, fy)
                          + (-(1.0 - dlt) * (dual_obj - primal_obj + psi)
                             + psi - dlt * mu / phi + so_phi / phi))
@@ -337,7 +348,7 @@ def make_step(A, b, c, *,
                            -dphi_a / phi, -dpsi_a / psi)
                 th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
                                    one)
-                mu_aff = (nsum(dot(z + th_a * dz_a, x + th_a * dx_a))
+                mu_aff = (nsum(ndot(z + th_a * dz_a, x + th_a * dx_a))
                           + dot(w + th_a * dw_a, y + th_a * dy_a)
                           + (phi + th_a * dphi_a) * (psi + th_a * dpsi_a)
                           ) / (n + m + 1)

@@ -23,8 +23,9 @@ solve(lp, mesh=...) is the tensor-parallel path of one large LP (the JAX
 package's _place_tp): every rank of the mesh calls it (SPMD), A's (or the
 UbTail head's) columns and c are split over the mesh's "model" ranks, the
 rest is whole on every rank, and the same HSD loop runs with explicit
-collectives (parallel/distributed.py); each rank returns the same full
-Solution.
+collectives (parallel/distributed.py), at every precision: under "dd"
+the column sums are compensated across the ranks (ColumnShards.sum2).
+Each rank returns the same full Solution.
 """
 
 from __future__ import annotations
@@ -348,8 +349,9 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
     solve this one LP tensor-parallel: called on every rank of the mesh,
     each with its own device, it splits the columns over the "model" ranks
     (padded with zero columns to a multiple of them) and returns the same
-    Solution on every rank.  The hsd family only, no "dd" precision, and no
-    quality retries (as the JAX package's mesh path).  Every rank passes
+    Solution on every rank.  The hsd family only, every precision ("dd"
+    compensates its column sums across the ranks), and no quality retries
+    (as the JAX package's mesh path).  Every rank passes
     the same config; a finite time limit stops them all at the iteration
     where it has passed on any.
     """
@@ -369,9 +371,6 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         raise ValueError(
             f"mesh (tensor-parallel) solve supports the hsd family, "
             f"not {method!r}")
-    if mesh is not None and cfg.precision == "dd":
-        raise ValueError("precision 'dd' is not ported to the mesh "
-                         "(tensor-parallel) solve")
     canon = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
                          free_vars=cfg.free_vars, scale=cfg.scale)
     if canon.status != int(Status.RUNNING):

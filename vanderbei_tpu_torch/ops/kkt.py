@@ -36,12 +36,15 @@ and each reduction over the column dim goes through the "model" group: the
 normal matrix is the all-reduced sum of the ranks' partial products
 (normal_matrix), a row-space product A @ v is a
 partial sum completed by an all-reduce, A' @ y stays local, and the
-refinement's residual maxima are all-reduced (MAX).  The UbTail is the
-rank's own (ColumnShards.tail): tail rows of columns it does not own
-weigh 0, so a gather from the columns into the tail rows is a partial
-sum too.  Every flag the host reads (factor retry, refinement) is one the
-group agrees on.  Only the primal form decomposes over column shards: with
-cols, a system the dual form would take (m > n, or a Q) raises ValueError.
+refinement's residual maxima are all-reduced (MAX); a compensated ("dd")
+residual's A @ v is left unrounded on each rank and completed by
+ColumnShards.sum2, which keeps the cancellation between the ranks.  The
+UbTail is the rank's own (ColumnShards.tail): tail rows of columns it does
+not own weigh 0, so a gather from the columns into the tail rows is a
+partial sum too.  Every flag the host reads (factor retry, refinement) is
+one the group agrees on.  Only the primal form decomposes over column
+shards: with cols, a system the dual form would take (m > n, or a Q)
+raises ValueError.
 cols=None is the single-device path.
 """
 
@@ -51,7 +54,7 @@ from typing import NamedTuple
 
 import torch
 
-from .quad import matvec2
+from .quad import DD, matvec2, matvec2_dd
 from .syrk import scaled_syrk
 
 
@@ -124,10 +127,16 @@ def _w2(ub: UbTail, v, stack: bool):
 def tail_matvec(A1, ub: UbTail, x, mv=mv):
     """[A1; S] @ x where S are the ub/padding tail rows; x is (..., n) or
     (..., n, k).  mv(M, v) forms the head product (quad.matvec2 in
-    compensated mode)."""
+    compensated mode; where it returns an unrounded quad.DD, so does
+    this: the tail's single products, exact, carry a zero lo word)."""
     stack = x.dim() == A1.dim()
-    return torch.cat([mv(A1, x), _w2(ub, x, stack) * _take(x, ub.idx2)],
-                     dim=-2 if stack else -1)
+    dim = -2 if stack else -1
+    head = mv(A1, x)
+    tail = _w2(ub, x, stack) * _take(x, ub.idx2)
+    if isinstance(head, DD):
+        return DD(torch.cat([head.hi, tail], dim=dim),
+                  torch.cat([head.lo, torch.zeros_like(tail)], dim=dim))
+    return torch.cat([head, tail], dim=dim)
 
 
 def tail_rmatvec(A1, ub: UbTail, y, mv=mv):
@@ -338,10 +347,9 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     compensated=True forms the refinement residuals' products with
     quad.matvec2 (twice the working precision, the QuadPrec analogue), so
     refinement can go below the plain products' roundoff floor.  cols:
-    column shards (module docstring); not with compensated."""
-    if cols is not None and compensated:
-        raise ValueError("compensated (dd) solves are not ported to column "
-                         "shards")
+    column shards (module docstring); with compensated, the head product
+    of the residual's row block is a partial sum left unrounded
+    (quad.matvec2_dd) and completed by ColumnShards.sum2."""
     nsum, nmax = (local, local) if cols is None else (cols.sum, cols.max)
     Ec = E.clamp_min(epsdiag)
     Dc = D.clamp_min(epsdiag)
@@ -350,16 +358,21 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
         rhs_y = rhs_y.unsqueeze(-1)
         rhs_x = rhs_x.unsqueeze(-1)
     base_mv = matvec2 if compensated else mv
+    # the row-block product A @ dx, a partial sum over the columns, and the
+    # reduction that completes it
+    row_mv, row_sum = base_mv, nsum
+    if compensated and cols is not None:
+        row_mv, row_sum = matvec2_dd, cols.sum2
     if ub is not None:
-        mv_ = lambda M, v: tail_matvec(M, ub, v, base_mv)
+        mv_ = lambda M, v: tail_matvec(M, ub, v, row_mv)
         mvT = lambda M, v: tail_rmatvec(M, ub, v, base_mv)
     else:
-        mv_ = base_mv
+        mv_ = row_mv
         mvT = lambda M, v: base_mv(M.mT, v)
     col = lambda v: v.unsqueeze(-1)
 
     def residual(dy, dx):
-        r1 = rhs_y + col(E) * dy - nsum(mv_(A, dx))
+        r1 = rhs_y + col(E) * dy - row_sum(mv_(A, dx))
         r2 = rhs_x - mvT(A, dy) - col(D) * dx
         if Q is not None:
             r2 = r2 - base_mv(Q, dx)

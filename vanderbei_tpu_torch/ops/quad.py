@@ -138,20 +138,33 @@ def dd_sum(x: DD) -> DD:
 
 
 # --- compensated reductions (work in single words, DD internally) --------
+#
+# The *_dd forms stop before the final rounding: their (hi, lo) is a
+# partial sum that a cross-rank reduction (parallel/distributed.py
+# ColumnShards.sum2) can finish without losing the cancellation between
+# the ranks; dot2/matvec2 are those forms rounded once, hi + lo.
+
+def dot2_dd(a, b) -> DD:
+    """The compensated dot product along the last dim, unrounded."""
+    p, e = two_prod(a, b)
+    return _tree(p, e, p.dim() - 1)
+
 
 def dot2(a, b) -> torch.Tensor:
     """Compensated dot product along the last dim (one per lane of a
     batch): as if computed in 2x working precision then rounded
     (Ogita-Rump-Oishi Dot2, vectorized as a tree)."""
-    p, e = two_prod(a, b)
-    s = _tree(p, e, p.dim() - 1)
+    s = dot2_dd(a, b)
     return s.hi + s.lo
 
 
-def _matvec2_col(A, x) -> torch.Tensor:
-    p, e = two_prod(A, x.unsqueeze(-2))
-    s = _tree(p, e, p.dim() - 1)
-    return s.hi + s.lo
+def matvec2_dd(A, x) -> DD:
+    """The compensated A @ x of matvec2, unrounded."""
+    if x.dim() < A.dim():
+        return dot2_dd(A, x.unsqueeze(-2))
+    cols = [dot2_dd(A, x[..., j].unsqueeze(-2)) for j in range(x.shape[-1])]
+    return DD(torch.stack([s.hi for s in cols], dim=-1),
+              torch.stack([s.lo for s in cols], dim=-1))
 
 
 def matvec2(A, x) -> torch.Tensor:
@@ -167,10 +180,8 @@ def matvec2(A, x) -> torch.Tensor:
     the smoke LP's f64 head (2560 x 4096, 84 MB a plane) that is about
     0.5 GB; a (rows, n, k) broadcast would take k times as much.
     """
-    if x.dim() < A.dim():
-        return _matvec2_col(A, x)
-    return torch.stack([_matvec2_col(A, x[..., j])
-                        for j in range(x.shape[-1])], dim=-1)
+    s = matvec2_dd(A, x)
+    return s.hi + s.lo
 
 
 def sum2(a) -> torch.Tensor:

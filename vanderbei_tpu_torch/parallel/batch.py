@@ -219,7 +219,9 @@ def solve_batch_hsd(A, b, c, *,
     its columns of the "model" dim, which the solve splits over the rank's
     "model" group, and ub its lanes with their global column indices.
     Called on every rank; returns this rank's lanes with all their columns
-    (gather_lanes assembles the class).  Not with compensated.
+    (gather_lanes assembles the class).  compensated sums the columns
+    across the "model" ranks compensated (ColumnShards.sum2); a "model"
+    group of one rank holds every column and reduces nothing.
 
     Returns (status, x, y, w, z, iterations), each batched over B, on
     `device`."""
@@ -228,7 +230,7 @@ def solve_batch_hsd(A, b, c, *,
     A, b, c = (_tensor(v, device) for v in (A, b, c))
     extra = 0 if ub is None else np.shape(ub.idx2)[-1]
     cols = None
-    if mesh is not None:
+    if mesh is not None and model_size(mesh) > 1:
         cols = ColumnShards.split(mesh.get_group("model"),
                                   A.shape[-1] * model_size(mesh))
 

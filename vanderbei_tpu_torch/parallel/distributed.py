@@ -13,8 +13,9 @@ factor and the triangular solves then run replicated on every rank, while
 all A-sized work (the SYRK, A'y, Ax) stays on the rank's own columns.
 Where the JAX package lets GSPMD place the collectives, here they are
 explicit: ColumnShards carries the "model" group and the rank's column
-range, and its sum/max/min/all reduce a tensor over the group.  Only
-all_reduce (SUM, MIN, MAX) and broadcast are used, the two collectives
+range, and its sum/max/min/all reduce a tensor over the group; sum2
+completes compensated ("dd") partial sums without rounding them first.
+Only all_reduce (SUM, MIN, MAX) and broadcast are used, the two collectives
 that gloo also runs on CUDA tensors, so several ranks can share one card
 under gloo while one rank per card runs under nccl; the caller picks the
 backend.
@@ -35,23 +36,25 @@ import torch
 import torch.distributed as dist
 
 from ..ops import kkt, syrk
+from ..ops.quad import DD, _tree
 
 
 class ColumnShards:
     """This rank's share of A's columns: the "model" process group, the
     column range [lo, hi) of the global n, and the owner map of the UbTail
     rows (set by tail()).  Every reduction over the column dim of a
-    sharded solve goes through it; `calls`, `nbytes` and `seconds` count
-    the all-reduces it issued, the bytes they carried and the host time
-    spent in them (for a blocking backend such as gloo, waiting for the
-    device work before each one included)."""
+    sharded solve goes through it; `ops` counts the all-reduces it issued
+    by method (sum, sum2, max, min, all, any), `nbytes` and `seconds` the
+    bytes they carried and the host time spent in them (for a blocking
+    backend such as gloo, waiting for the device work before each one
+    included)."""
 
     def __init__(self, group, lo: int, hi: int, n: int):
         self.group, self.lo, self.hi, self.n = group, lo, hi, n
         self.own = None
-        self.calls = 0
         self.nbytes = 0
         self.seconds = 0.0
+        self.ops = dict.fromkeys(OPS, 0)
 
     @classmethod
     def split(cls, group, n: int) -> "ColumnShards":
@@ -64,44 +67,71 @@ class ColumnShards:
         width = n // size
         return cls(group, rank * width, (rank + 1) * width, n)
 
-    def _reduce(self, parts, op):
-        """All-reduce the parts (tensors of one dtype) in one collective;
-        returns new tensors of their shapes (a single part: one tensor)."""
-        flat = (parts[0].reshape(-1).clone() if len(parts) == 1
-                else torch.cat([p.reshape(-1) for p in parts]))
+    def _all_reduce(self, flat, op, name):
         t0 = time.perf_counter()
         dist.all_reduce(flat, op=op, group=self.group)
         self.seconds += time.perf_counter() - t0
-        self.calls += 1
+        self.ops[name] += 1
         self.nbytes += flat.numel() * flat.element_size()
-        out = [t.view(p.shape) for t, p in
-               zip(flat.split([p.numel() for p in parts]), parts)]
-        return out[0] if len(out) == 1 else out
+
+    def _reduce(self, parts, op, name):
+        """All-reduce the parts (tensors of one dtype) in one collective;
+        returns new tensors of their shapes (a single part: one tensor)."""
+        flat = _flat(parts)
+        self._all_reduce(flat, op, name)
+        return _unflat(flat, parts)
 
     def counts(self, since=None) -> dict:
         """The counters as a record (all_reduces, all_reduce_bytes,
-        all_reduce_seconds), less those of an earlier record `since`."""
-        now = dict(all_reduces=self.calls, all_reduce_bytes=self.nbytes,
-                   all_reduce_seconds=self.seconds)
+        all_reduce_seconds, and all_reduces_<op> by method), less those
+        of an earlier record `since`."""
+        now = dict(all_reduces=sum(self.ops.values()),
+                   all_reduce_bytes=self.nbytes,
+                   all_reduce_seconds=self.seconds,
+                   **{f"all_reduces_{k}": v for k, v in self.ops.items()})
         return now if since is None else {k: v - since[k]
                                           for k, v in now.items()}
 
     def sum(self, *parts):
         """Sum of every rank's partial sums."""
-        return self._reduce(parts, dist.ReduceOp.SUM)
+        return self._reduce(parts, dist.ReduceOp.SUM, "sum")
+
+    def sum2(self, *parts: DD):
+        """The compensated sum of every rank's unrounded partial sums (the
+        *_dd forms of ops/quad), rounded once: as if the whole column range
+        were reduced in twice the working precision.
+
+        Neither the rounded partials nor the hi and lo words summed apart
+        keep the cancellation between the ranks.  So each rank writes its
+        (hi, lo) words into its own slot of a zero (world, 2, total)
+        buffer, one SUM all-reduce fills it exactly (each slot has one
+        writer, the other ranks add zeros), and every rank adds the slots
+        with quad's dd_add tree over the rank dim, in rank order, and
+        rounds hi + lo once: every rank holds the same bits."""
+        world = dist.get_world_size(self.group)
+        rank = dist.get_rank(self.group)
+        hi = _flat([p.hi for p in parts])
+        buf = hi.new_zeros(world, 2, hi.numel())
+        buf[rank, 0] = hi
+        buf[rank, 1] = _flat([p.lo for p in parts])
+        self._all_reduce(buf, dist.ReduceOp.SUM, "sum2")
+        s = _tree(buf[:, 0], buf[:, 1], 0)
+        return _unflat(s.hi + s.lo, [p.hi for p in parts])
 
     def max(self, *parts):
-        return self._reduce(parts, dist.ReduceOp.MAX)
+        return self._reduce(parts, dist.ReduceOp.MAX, "max")
 
     def min(self, *parts):
-        return self._reduce(parts, dist.ReduceOp.MIN)
+        return self._reduce(parts, dist.ReduceOp.MIN, "min")
 
     def all(self, flag):
         """A boolean tensor true where it is true on every rank."""
-        return self._reduce((flag.to(torch.int32),), dist.ReduceOp.MIN) > 0
+        return self._reduce((flag.to(torch.int32),), dist.ReduceOp.MIN,
+                            "all") > 0
 
     def any(self, flag):
-        return self._reduce((flag.to(torch.int32),), dist.ReduceOp.MAX) > 0
+        return self._reduce((flag.to(torch.int32),), dist.ReduceOp.MAX,
+                            "any") > 0
 
     def tail(self, ub):
         """This rank's UbTail: each tail row whose column it owns, at its
@@ -119,6 +149,23 @@ class ColumnShards:
         full = v.new_zeros(*v.shape[:-1], self.n)
         full[..., self.lo:self.hi] = v
         return self.sum(full)
+
+
+OPS = ("sum", "sum2", "max", "min", "all", "any")
+
+
+def _flat(parts):
+    """The parts (tensors of one dtype) as one new flat tensor."""
+    return (parts[0].reshape(-1).clone() if len(parts) == 1
+            else torch.cat([p.reshape(-1) for p in parts]))
+
+
+def _unflat(flat, parts):
+    """flat split into tensors of the parts' shapes (a single part: one
+    tensor)."""
+    out = [t.view(p.shape) for t, p in
+           zip(flat.split([p.numel() for p in parts]), parts)]
+    return out[0] if len(out) == 1 else out
 
 
 def model_size(mesh) -> int:

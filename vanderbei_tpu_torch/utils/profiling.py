@@ -4,7 +4,8 @@
   there is one, CUDA activity), writing a Chrome trace into dir; the
   profile object it yields has key_averages() and events();
 - `busy_share(prof, seconds)`: the union of the CUDA events' intervals
-  over a wall time, the device-busy share of PERF.md;
+  over a wall time, the device-busy share of PERF.md, from a
+  `device_trace(cuda)`;
 - `time_fn(fn, *args, reps=...)`: best-of-reps wall timing, each rep
   closed by torch.cuda.synchronize so that it times the device work.
 """
@@ -32,17 +33,31 @@ def trace(log_dir: str):
 
 
 def device_busy_us(prof) -> float:
-    """Union of the CUDA events' [start, end) intervals, in us."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    total, end = 0.0, float("-inf")
+    """Union of the CUDA events' [start, end) intervals, in us.  It reads
+    the profiler's raw events: parsing them into prof.events() builds a
+    tree of every event, seconds of host time for one solve's trace.
+    prof.profiler.kineto_results is private (checked on torch 2.11); this
+    is the one place that reads it."""
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    total, end = 0, float("-inf")
     for lo, hi in spans:
         if hi <= end:
             continue
         total += hi - max(lo, end)
         end = hi
-    return total
+    return total / 1e3
+
+
+def device_trace(cuda: bool):
+    """A torch.profiler context that records what busy_share reads: the
+    CUDA activity (kernels, copies) of a run on a card, the CPU ops of one
+    on the CPU (which has no device time).  A card's run leaves its CPU ops
+    out, whose tens of thousands of events the profiler's exit would take
+    seconds to process."""
+    return profile(activities=[ProfilerActivity.CUDA if cuda
+                               else ProfilerActivity.CPU])
 
 
 def busy_share(prof, seconds: float) -> float:
