@@ -46,6 +46,7 @@ from ..ops.kkt import (dot as _dot, kkt_factor, kkt_solve, local,
                        mv as _mv, UbTail, tail_matvec, tail_rmatvec,
                        where_lanes)
 from ..ops.quad import DD, dot2, dot2_dd, matvec2, matvec2_dd
+from ..utils.profiling import host_read
 
 DEFAULT_MAX_ITER = 200      # hsd.c:25
 DEFAULT_MAX_ITER_LS = 600   # hsdls.c:25
@@ -432,7 +433,8 @@ def past_deadline(deadline: float, like, cols=None) -> bool:
     late = time.monotonic() > deadline
     if cols is None:
         return late
-    return bool(cols.any(torch.tensor(late, device=like.device)).item())
+    flag = cols.any(torch.tensor(late, device=like.device))
+    return bool(host_read("deadline", flag.item))
 
 
 def _hsd_loop(A, b, c, f, init: HsdState, *,
@@ -483,8 +485,8 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
         live = ((state.status == _RUNNING) & (state.iter < max_iter)
                 & (pre.mu.reshape(state.status.shape) > pause))
         stepping = live & (pre.new_status == _RUNNING).reshape(live.shape)
-        any_live, any_step = torch.stack([live.any(), stepping.any()]
-                                         ).tolist()
+        any_live, any_step = host_read(
+            "hsd.loop", torch.stack([live.any(), stepping.any()]).tolist)
         if not any_live:
             break
         if on_iter is not None:
@@ -494,8 +496,9 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
         if deadline is not None and past_deadline(deadline, A, cols):
             break
     mu = _mu(state, n + m + 1, local if cols is None else cols.sum)
-    paused = bool(((state.status == _RUNNING) & (state.iter < max_iter)
-                   & (mu <= pause)).all().item())
+    paused = bool(host_read("hsd.pause", (
+        (state.status == _RUNNING) & (state.iter < max_iter)
+        & (mu <= pause)).all().item))
     return state, paused
 
 

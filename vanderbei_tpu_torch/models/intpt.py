@@ -27,6 +27,7 @@ import torch
 
 from ..core.status import Status
 from ..ops.kkt import dot as _dot, kkt_factor, kkt_solve, mv, where_lanes
+from ..utils.profiling import host_read
 
 DEFAULT_MAX_ITER = 200      # intpt.c:31
 
@@ -225,16 +226,17 @@ def _intpt_loop(A, b, c, f, Q, init: IntptState, *,
         live = ((state.status == _RUNNING) & (state.iter < max_iter)
                 & (_gap(state) > pause))
         stepping = live & (pre[-1] == _RUNNING).reshape(live.shape)
-        any_live, any_step = torch.stack([live.any(), stepping.any()]
-                                         ).tolist()
+        any_live, any_step = host_read(
+            "intpt.loop", torch.stack([live.any(), stepping.any()]).tolist)
         if not any_live:
             break
         # a single LP steps only when live: no lanes to keep
         state = body(state, live if live.dim() else None, pre, any_step)
         if deadline is not None and time.monotonic() > deadline:
             break
-    paused = bool(((state.status == _RUNNING) & (state.iter < max_iter)
-                   & (_gap(state) <= pause)).all().item())
+    paused = bool(host_read("intpt.pause", (
+        (state.status == _RUNNING) & (state.iter < max_iter)
+        & (_gap(state) <= pause)).all().item))
     return state, paused
 
 

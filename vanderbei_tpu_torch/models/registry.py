@@ -44,7 +44,8 @@ from ..core.status import Status
 from ..ops.kkt import local
 from ..parallel.distributed import (ColumnShards, column_shard,
                                     model_size)
-from ..utils.checkpoint import operands_from_canon
+from ..utils.checkpoint import operands_from_canon, to_device
+from ..utils.profiling import Span, host_read, span, spanned
 from . import hsd as _hsd
 from . import intpt as _intpt
 from . import simplex as _simplex
@@ -85,7 +86,7 @@ def _state_finite(state, nall=local) -> bool:
     ok = nall(torch.isfinite(state.x).all())
     if hasattr(state, "phi"):
         ok = ok & torch.isfinite(state.phi)
-    return bool(ok.item())
+    return bool(host_read("staged.finite", ok.item))
 
 
 def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
@@ -97,22 +98,32 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
     run_stage(args, init, pause, factor_dtype, deadline) -> (state, paused),
     where paused means the solve reached the stage boundary (mu for hsd,
     the duality gap for intpt); solver_mod.cast_state moves the paused
-    state to f64.  Appends one record per stage run to `stages`.  Returns
-    the final state.  cols: the column shards of the state's x, if any
-    (each stage's record then counts its all-reduces, their bytes and
-    seconds); `shape` is always the global one.
+    state to f64.  Appends one record per stage run to `stages`, its
+    seconds those of the stage's span.  Returns the final state.  cols:
+    the column shards of the state's x, if any (each stage's record then
+    counts its all-reduces, their bytes and seconds); `shape` is always
+    the global one.
     """
     precision = resolve_precision(cfg, shape)
     deadline = (None if not np.isfinite(cfg.time_limit)
                 else time.monotonic() + cfg.time_limit)
 
+    def iters(state):
+        return int(host_read("staged.iter", state.iter.item))
+
+    def status(state):
+        return int(host_read("staged.status", state.status.item))
+
     def timed(label, args, state, pause, factor_dtype):
-        t0 = time.perf_counter()
-        it0 = int(state.iter)
-        count0 = None if cols is None else cols.counts()
-        state, paused = run_stage(args, state, pause, factor_dtype, deadline)
-        stages.append(dict(precision=label, iterations=int(state.iter) - it0,
-                           seconds=time.perf_counter() - t0, paused=paused))
+        with Span("stage", precision=label) as sp:
+            it0 = iters(state)
+            count0 = None if cols is None else cols.counts()
+            state, paused = run_stage(args, state, pause, factor_dtype,
+                                      deadline)
+            sp.attrs["iterations"] = iters(state) - it0
+        stages.append(dict(precision=label,
+                           iterations=sp.attrs["iterations"],
+                           seconds=sp.seconds, paused=paused))
         if cols is not None:
             stages[-1].update(cols.counts(since=count0))
         return state
@@ -123,7 +134,7 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
         args32 = mk_args32()
         state = timed("f32", args32, init_for(args32), stage_knob, None)
         if (not _state_finite(state, local if cols is None else cols.all)
-                or int(state.status) == int(Status.SUBOPTIMAL)):
+                or status(state) == int(Status.SUBOPTIMAL)):
             # the f32 sprint diverged (the finite-iterate guard stopped it
             # SUBOPTIMAL): restart clean in f64 rather than polish it
             state = None
@@ -148,8 +159,8 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
 
     # a warm-started polish that exhausts the budget gets one clean f64
     # retry: the f32 sprint can wander on degenerate problems
-    if (warm and int(state.status) == int(Status.RUNNING)
-            and int(state.iter) >= max_iter
+    if (warm and status(state) == int(Status.RUNNING)
+            and iters(state) >= max_iter
             and (deadline is None
                  or not _hsd.past_deadline(deadline, state.x, cols))):
         state = timed(label + " retry", args64, init_for(args64), 0.0,
@@ -209,8 +220,9 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
     # as solve() pads a dense canon
     N = (None if mesh is None
          else -(-size_class(canon.n) // model_size(mesh)) * model_size(mesh))
-    struct = (_hsd_structured_operands(canon, N=N)
-              if cfg.use_ub_structure else None)
+    with span("pad"):
+        struct = (_hsd_structured_operands(canon, N=N)
+                  if cfg.use_ub_structure else None)
     cols = None
     source = canon if struct is None else struct
     shape = (canon.A.shape if struct is None
@@ -261,6 +273,12 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
         m1, k, M1 = struct["m1"], struct["k"], struct["M1"]
         y = torch.cat([y[:m1], y[M1:M1 + k]])
         w = torch.cat([w[:m1], w[M1:M1 + k]])
+    return _fetch(status, x, y, w, z, iters)
+
+
+@spanned("fetch")
+def _fetch(status, x, y, w, z, iters):
+    """A solve's outputs on the host."""
     host = lambda t: t.cpu().numpy()
     return int(status), host(x), host(y), host(w), host(z), int(iters)
 
@@ -273,9 +291,10 @@ def _solve_intpt(canon: CanonLP, cfg: SolverConfig, device, stages: list):
 
     def mk(dtype):
         A, b, c, _ = operands_from_canon(canon, device, dtype)
-        Q = (None if canon.Q is None
-             else torch.from_numpy(canon.Q).to(device, dtype))
-        return A, b, c, Q
+        if canon.Q is None:
+            return A, b, c, None
+        with span("upload"):
+            return A, b, c, to_device(canon.Q, device, dtype)
 
     def run_stage(args, init, pause, factor_dtype, deadline):
         A, b, c, Q = args
@@ -304,8 +323,7 @@ def _solve_intpt(canon: CanonLP, cfg: SolverConfig, device, stages: list):
         max_iter, lambda: mk(torch.float32), lambda: mk(torch.float64),
         knob, canon.A.shape, stages)
     status, x, y, w, z, iters = _intpt.finish_state(state, max_iter)
-    host = lambda t: t.cpu().numpy()
-    return int(status), host(x), host(y), host(w), host(z), int(iters)
+    return _fetch(status, x, y, w, z, iters)
 
 
 SOLVERS = {
@@ -336,6 +354,7 @@ def _pad(canon: CanonLP, pad_to, structured: bool) -> CanonLP:
     return canon
 
 
+@spanned("solve")
 def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
           pad_to: int | str = "auto", device="cuda", mesh=None) -> Solution:
     """Canonicalize and solve an LP on `device` (the analogue of solvelp,
@@ -371,8 +390,9 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         raise ValueError(
             f"mesh (tensor-parallel) solve supports the hsd family, "
             f"not {method!r}")
-    canon = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
-                         free_vars=cfg.free_vars, scale=cfg.scale)
+    with span("canonicalize"):
+        canon = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
+                             free_vars=cfg.free_vars, scale=cfg.scale)
     if canon.status != int(Status.RUNNING):
         n, m0 = lp.n, lp.m
         return Solution(status=canon.status, x=np.zeros(n), y=np.zeros(m0),
@@ -380,13 +400,14 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
                         dual_obj=0.0, stages=[])
     structured = (hsd_family and cfg.use_ub_structure
                   and _hsd_structure_applies(canon))
-    canon = _pad(canon, pad_to, structured)
-    kw = {}
-    if mesh is not None:
-        kw["mesh"] = mesh
-        size = model_size(mesh)
-        if not structured and canon.n % size:
-            canon = pad_canon(canon, canon.m, -(-canon.n // size) * size)
+    with span("pad"):
+        canon = _pad(canon, pad_to, structured)
+        kw = {}
+        if mesh is not None:
+            kw["mesh"] = mesh
+            size = model_size(mesh)
+            if not structured and canon.n % size:
+                canon = pad_canon(canon, canon.m, -(-canon.n // size) * size)
     stages: list = []
     t0 = time.perf_counter()
     status, x, y, w, z, iters = solver(canon, cfg, device, stages, **kw)
@@ -397,10 +418,12 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         # perturbed optimum); keep the retry only if it is OPTIMAL
         if cfg.verbose:
             print("hsd suboptimal: retrying unscaled", flush=True)
-        canon2 = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
-                              free_vars=cfg.free_vars, scale="none")
-        canon2 = _pad(canon2, pad_to, cfg.use_ub_structure
-                      and _hsd_structure_applies(canon2))
+        with span("canonicalize"):
+            canon2 = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
+                                  free_vars=cfg.free_vars, scale="none")
+        with span("pad"):
+            canon2 = _pad(canon2, pad_to, cfg.use_ub_structure
+                          and _hsd_structure_applies(canon2))
         st2, x2, y2, w2, z2, it2 = solver(canon2, cfg.with_(scale="none"),
                                           device, stages)
         if st2 == int(Status.OPTIMAL):

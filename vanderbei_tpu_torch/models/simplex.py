@@ -40,6 +40,8 @@ import torch
 from ..core.config import SolverConfig
 from ..core.status import Status
 from ..ops.kkt import where_lanes
+from ..utils.checkpoint import to_device
+from ..utils.profiling import host_read, spanned
 
 EPS1 = 1.0e-8       # pivot eligibility (pd.c:39)
 EPS2 = 1.0e-12      # perturbation positivity floor (pd.c:40)
@@ -154,6 +156,7 @@ def _copy_into(dst, src):
     return dst
 
 
+@spanned("graph_capture")
 def _graph_step(body, state):
     """Capture body (state -> new state, no host reads) as one CUDA graph
     that reads a static copy of state and writes its result back into it.
@@ -334,7 +337,7 @@ def _pd_loop(Afull, b, c, u_x, u_y, *, max_iter: int, refresh_every: int,
         if k % refresh_every == 0:
             if k:
                 state = put(state, refresh(state))
-            if not bool(running(state).any().item()):
+            if not bool(host_read("pd.loop", running(state).any().item)):
                 break
         state = step(state)
         k += 1
@@ -393,12 +396,13 @@ def _twophase_loop(Afull, b, c, u_y, *, max_iter: int, refresh_every: int,
             _trace_row(s.iter, c[s.basics] @ s.x_B, float("nan"))
         # STEP 1: most negative basic primal (pick_neg, 2phase.c:616-629)
         col_out = torch.argmin(s.x_B)
-        if bool((s.x_B[col_out] >= -EPS2).item()):
+        if bool(host_read("twophase.test", (s.x_B[col_out] >= -EPS2).item)):
             done = True
             return s._replace(iter=s.iter + 1)
-        col_out = int(col_out)
+        col_out = host_read("twophase.pick", col_out.item)
         dy_N = _dy_nonbasic(Afull, s.Binv, s.nonbasics, col_out)
-        col_in = int(_masked_argmin(s.y_N / dy_N, dy_N > EPS1))
+        col_in = host_read("twophase.pick",
+                           _masked_argmin(s.y_N / dy_N, dy_N > EPS1).item)
         if col_in < 0:
             return s._replace(status=int(Status.PRIMAL_INFEASIBLE),
                               iter=s.iter + 1)
@@ -411,12 +415,13 @@ def _twophase_loop(Afull, b, c, u_y, *, max_iter: int, refresh_every: int,
             _trace_row(s.iter, c[s.basics] @ s.x_B, float("nan"))
         # STEP 1: most negative nonbasic dual (2phase.c:370)
         col_in = torch.argmin(s.y_N)
-        if bool((s.y_N[col_in] >= -EPS2).item()):
+        if bool(host_read("twophase.test", (s.y_N[col_in] >= -EPS2).item)):
             done = True
             return s._replace(status=int(Status.OPTIMAL), iter=s.iter + 1)
-        col_in = int(col_in)
+        col_in = host_read("twophase.pick", col_in.item)
         dx_B = s.Binv @ _column(Afull, s.nonbasics, col_in)
-        col_out = int(_masked_argmin(s.x_B / dx_B, dx_B > EPS1))
+        col_out = host_read("twophase.pick",
+                            _masked_argmin(s.x_B / dx_B, dx_B > EPS1).item)
         if col_out < 0:
             return s._replace(status=int(Status.PRIMAL_UNBOUNDED),
                               iter=s.iter + 1)
@@ -453,13 +458,18 @@ def _twophase_loop(Afull, b, c, u_y, *, max_iter: int, refresh_every: int,
 
 def _prepare(canon, cfg: SolverConfig, device):
     """[A | I], b and c (slack columns cost 0) on the device."""
-    A = torch.from_numpy(np.asarray(canon.A, cfg.dtype)).to(device)
+    up = lambda a: to_device(np.asarray(a, cfg.dtype), device,
+                             _torch_dtype(cfg.dtype))
+    A = up(canon.A)
     m = A.shape[0]
     Afull = torch.cat([A, torch.eye(m, dtype=A.dtype, device=device)], dim=1)
-    b = torch.from_numpy(np.asarray(canon.b, cfg.dtype)).to(device)
-    c = torch.cat([torch.from_numpy(np.asarray(canon.c, cfg.dtype)).to(device),
-                   torch.zeros(m, dtype=A.dtype, device=device)])
+    b = up(canon.b)
+    c = torch.cat([up(canon.c), torch.zeros(m, dtype=A.dtype, device=device)])
     return Afull, b, c
+
+
+def _torch_dtype(dtype):
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
 def perturbation_draws(cfg: SolverConfig, m: int, n: int, lanes=()):
@@ -467,15 +477,16 @@ def perturbation_draws(cfg: SolverConfig, m: int, n: int, lanes=()):
     perturbations, from a CPU torch.Generator seeded with cfg.seed;
     twophase uses u_y."""
     gen = torch.Generator().manual_seed(int(cfg.seed))
-    dtype = torch.from_numpy(np.zeros(0, cfg.dtype)).dtype
+    dtype = _torch_dtype(cfg.dtype)
     u_x = torch.rand(*lanes, m, generator=gen, dtype=dtype)
     u_y = torch.rand(*lanes, n, generator=gen, dtype=dtype)
     return u_x, u_y
 
 
 def _draw_to(u, like):
-    """A draw (tensor or array) as a tensor of like's dtype and device."""
-    return torch.tensor(np.asarray(u), dtype=like.dtype, device=like.device)
+    """A draw (tensor or array) as a tensor of like's dtype and device: a
+    copy (a JAX draw's array is read-only)."""
+    return to_device(np.array(u), like.device, like.dtype)
 
 
 def _deadline(cfg: SolverConfig):

@@ -28,7 +28,9 @@ Hopper kernel on a CUDA tensor, in one launch for the whole batch.  The
 f64 product, the Cholesky factor (cholesky_ex, whose `info` joins the
 NaN/Inf scan), the triangular solves and the matvecs stay torch.matmul /
 torch.linalg.  Each factor retry and each refinement pass reads one flag
-on the host.
+on the host.  The recorder's spans (utils/profiling.py): `normal_matrix`
+around the assembly, `factor` around its scaling and the Cholesky with
+its retries, `kkt_solve` around a refined solve.
 
 Column shards (cols, a parallel/distributed.ColumnShards): A and every
 n-vector hold only this rank's columns, m-vectors are whole on every rank,
@@ -54,6 +56,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import host_read, span, spanned
 from .quad import DD, matvec2, matvec2_dd
 from .syrk import scaled_syrk
 
@@ -169,6 +172,7 @@ def _cholesky(Mr):
     return L, bad
 
 
+@spanned("normal_matrix")
 def normal_matrix(A, Ec, Dc, f32_path: bool, Q=None, dinv=None, cols=None):
     """The reduced normal matrix from the clamped Ec, Dc: the primal form's
     E + A diag(dinv) A' (dinv = 1/Dc unless given, as the UbTail head's
@@ -248,47 +252,51 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
     M = normal_matrix(A, Ec, Dc, f32_path, Q=Q,
                       dinv=Dt if ub is not None else None, cols=cols)
 
-    # the scaling vector stays at DATA precision: solves multiply through
-    # it, and truncating it would cap refinement at factor accuracy
-    d = torch.diagonal(M, dim1=-2, dim2=-1).to(A.dtype)
-    tiny = 1e-300 if A.dtype == torch.float64 else 1e-30
-    s = torch.rsqrt(d.clamp_min(tiny))
-    s_m = s.to(M.dtype)
-    Ms = M * s_m.unsqueeze(-1) * s_m.unsqueeze(-2)
-    if factor_dtype is not None:
-        Ms = Ms.to(factor_dtype)
-    # factor the symmetric part, as jnp.linalg.cholesky does
-    Ms = (Ms + Ms.mT) / 2
-    eye = torch.eye(Ms.shape[-1], dtype=Ms.dtype, device=Ms.device)
-    # the escalation ladder runs in the factor's precision, like the JAX
-    # loop's carried scalar: floor, then x100 per retry, stop at >= 1e-2
-    lead = Ms.shape[:-2]
-    floor = 1.0e-14 if Ms.dtype == torch.float64 else 1.0e-7
-    reg = torch.as_tensor(0.0 if reg0 is None else reg0, dtype=Ms.dtype,
-                          device=Ms.device).expand(lead).clone()
-    L, bad = _cholesky(Ms + reg[..., None, None] * eye)
-    bad = nany(bad)
-    # retry lane by lane (a single LP is one lane): refactor the lanes
-    # whose factor failed, each at its own next level
-    L, bad, reg = L.reshape(-1, *L.shape[-2:]), bad.reshape(-1), \
-        reg.reshape(-1)
-    Mf = Ms.reshape(-1, *Ms.shape[-2:])
-    retry_ok = reg < 1.0e-2 if active is None else (
-        active.expand(lead).reshape(-1) & (reg < 1.0e-2))
-    while True:
-        retry = torch.nonzero(bad & retry_ok).squeeze(-1)
-        if retry.numel() == 0:
-            break
-        r = reg[retry]
-        r = torch.where(r == 0.0, torch.full_like(r, floor), r * 100.0)
-        Lr, badr = _cholesky(Mf[retry] + r[:, None, None] * eye)
-        reg[retry], L[retry], bad[retry] = r, Lr, nany(badr)
-        retry_ok[retry] = r < 1.0e-2
-    L, bad, reg = L.reshape(Ms.shape), bad.reshape(lead), reg.reshape(lead)
-    # a factor that never succeeded is all NaN, as the JAX factor is: the
-    # step's finite-iterate guard then stops that lane
-    L = torch.where(lanes(bad, L), float("nan"), L)
-    return KKTFactor(L, s, g2, reg)
+    with span("factor"):
+        # the scaling vector stays at DATA precision: solves multiply
+        # through it, and truncating it would cap refinement at factor
+        # accuracy
+        d = torch.diagonal(M, dim1=-2, dim2=-1).to(A.dtype)
+        tiny = 1e-300 if A.dtype == torch.float64 else 1e-30
+        s = torch.rsqrt(d.clamp_min(tiny))
+        s_m = s.to(M.dtype)
+        Ms = M * s_m.unsqueeze(-1) * s_m.unsqueeze(-2)
+        if factor_dtype is not None:
+            Ms = Ms.to(factor_dtype)
+        # factor the symmetric part, as jnp.linalg.cholesky does
+        Ms = (Ms + Ms.mT) / 2
+        eye = torch.eye(Ms.shape[-1], dtype=Ms.dtype, device=Ms.device)
+        # the escalation ladder runs in the factor's precision, like the
+        # JAX loop's carried scalar: floor, then x100 per retry, stop at
+        # >= 1e-2
+        lead = Ms.shape[:-2]
+        floor = 1.0e-14 if Ms.dtype == torch.float64 else 1.0e-7
+        reg = torch.as_tensor(0.0 if reg0 is None else reg0, dtype=Ms.dtype,
+                              device=Ms.device).expand(lead).clone()
+        L, bad = _cholesky(Ms + reg[..., None, None] * eye)
+        bad = nany(bad)
+        # retry lane by lane (a single LP is one lane): refactor the lanes
+        # whose factor failed, each at its own next level
+        L, bad, reg = L.reshape(-1, *L.shape[-2:]), bad.reshape(-1), \
+            reg.reshape(-1)
+        Mf = Ms.reshape(-1, *Ms.shape[-2:])
+        retry_ok = reg < 1.0e-2 if active is None else (
+            active.expand(lead).reshape(-1) & (reg < 1.0e-2))
+        while True:
+            retry = host_read("kkt.retry", torch.nonzero,
+                              bad & retry_ok).squeeze(-1)
+            if retry.numel() == 0:
+                break
+            r = reg[retry]
+            r = torch.where(r == 0.0, torch.full_like(r, floor), r * 100.0)
+            Lr, badr = _cholesky(Mf[retry] + r[:, None, None] * eye)
+            reg[retry], L[retry], bad[retry] = r, Lr, nany(badr)
+            retry_ok[retry] = r < 1.0e-2
+        L, bad, reg = L.reshape(Ms.shape), bad.reshape(lead), reg.reshape(lead)
+        # a factor that never succeeded is all NaN, as the JAX factor is:
+        # the step's finite-iterate guard then stops that lane
+        L = torch.where(lanes(bad, L), float("nan"), L)
+        return KKTFactor(L, s, g2, reg)
 
 
 def _scaled_cho_solve(fac: KKTFactor, t):
@@ -334,6 +342,7 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None,
     return dy, dx
 
 
+@spanned("kkt_solve")
 def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
               epsdiag=1.0e-14, refine_tol=1.0e-10, max_refine: int = 8,
               compensated: bool = False, ub: UbTail | None = None,
@@ -398,7 +407,7 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
         go = (maxrs > refine_tol * maxbc) & (maxrs < 0.5 * oldmaxrs)
         if active is not None:
             go = go & active
-        if not bool(go.any().item()):
+        if not bool(host_read("kkt.refine", go.any().item)):
             break
         cy, cx = _raw_solve(A, Ec, Dc, L, r1, r2, Q, ub=ub, cols=cols)
         if go.dim():

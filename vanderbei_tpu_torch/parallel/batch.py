@@ -29,8 +29,6 @@ assembles the whole class on every rank.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -44,6 +42,8 @@ from ..models import simplex as _simplex
 from ..models.registry import (_hsd_structure_applies,
                                _hsd_structured_operands, resolve_device)
 from ..ops.kkt import UbTail, where_lanes
+from ..utils.checkpoint import to_device
+from ..utils.profiling import Span, count, host_read, span, spanned
 from .distributed import ColumnShards, model_size
 from .mesh import batch_sharding, block
 
@@ -70,6 +70,7 @@ def class_key(canon, granularity: int, use_ub_structure: bool) -> tuple:
     return (ru(canon.m), ru(canon.n))
 
 
+@spanned("group_by_class")
 def group_by_class(lps, granularity: int = 128,
                    use_ub_structure: bool = False, scale: str = "none",
                    free_vars: str = "reject"):
@@ -81,7 +82,9 @@ def group_by_class(lps, granularity: int = 128,
     classes: dict = {}
     aborted = []
     for idx, lp in enumerate(lps):
-        canon = canonicalize(lp, pad_to=1, scale=scale, free_vars=free_vars)
+        with span("canonicalize"):
+            canon = canonicalize(lp, pad_to=1, scale=scale,
+                                 free_vars=free_vars)
         if canon.status != int(Status.RUNNING):
             aborted.append((idx, canon.status))
             continue
@@ -90,6 +93,7 @@ def group_by_class(lps, granularity: int = 128,
     return classes, aborted
 
 
+@spanned("stack")
 def stack_class(entries, mp: int, np_: int, dtype=np.float64):
     """Stack a size class's canonical problems into (B, mp, np_) arrays."""
     B = len(entries)
@@ -104,6 +108,7 @@ def stack_class(entries, mp: int, np_: int, dtype=np.float64):
     return A, b, c
 
 
+@spanned("stack")
 def stack_class_structured(entries, M1: int, N: int, K: int,
                            dtype=np.float64):
     """Stack a STRUCTURED size class: head A1 (B, M1, N), b (B, M1+K),
@@ -143,6 +148,7 @@ def shard_batch(arrays, mesh, model_axis_dims=()):
     return out
 
 
+@spanned("gather_lanes")
 def gather_lanes(arrays, mesh):
     """The whole class on every rank from each rank's lanes (the outputs
     of solve_batch_hsd under `mesh`): one all-reduce over "batch" per
@@ -159,35 +165,40 @@ def gather_lanes(arrays, mesh):
     return out
 
 
-def _tensor(a, device, dtype=torch.float64):
-    if isinstance(a, torch.Tensor):
-        return a.to(device, dtype)
-    return torch.from_numpy(np.asarray(a)).to(device, dtype)
+def _upload(arrays, device):
+    """The arrays on the device, in f64."""
+    with span("upload"):
+        return [to_device(v, device, torch.float64) for v in arrays]
 
 
 def _ub(ub, device, dtype):
     if ub is None:
         return None
-    return UbTail(_tensor(ub.idx2, device, torch.int64),
-                  _tensor(ub.w2, device, dtype))
+    with span("upload"):
+        return UbTail(to_device(ub.idx2, device, torch.int64),
+                      to_device(ub.w2, device, dtype))
 
 
 def _timed(stages, label, run, state, cols=None):
-    """Run one stage; append its per-lane iterations and wall seconds (and
-    under column shards its all-reduces, their bytes and seconds)."""
-    t0 = time.perf_counter()
-    it0 = state.iter
-    count0 = None if cols is None else cols.counts()
-    out, _ = run(state)
+    """Run one stage; append its per-lane iterations and the seconds of its
+    span (and under column shards its all-reduces, their bytes and
+    seconds).  The span's iterations are the slowest lane's."""
+    with Span("stage", precision=label) as sp:
+        it0 = state.iter
+        count0 = None if cols is None else cols.counts()
+        out, _ = run(state)
+        if stages is not None:
+            its = host_read("batch.stage", (out.iter - it0).cpu).numpy()
+            sp.attrs["iterations"] = int(its.max())
     if stages is not None:
-        stages.append(dict(precision=label,
-                           iterations=(out.iter - it0).cpu().numpy(),
-                           seconds=time.perf_counter() - t0))
+        stages.append(dict(precision=label, iterations=its,
+                           seconds=sp.seconds))
         if cols is not None:
             stages[-1].update(cols.counts(since=count0))
     return out
 
 
+@spanned("solve_batch")
 def solve_batch_hsd(A, b, c, *,
                     ub: UbTail | None = None,
                     max_iter: int = 200,
@@ -225,9 +236,10 @@ def solve_batch_hsd(A, b, c, *,
 
     Returns (status, x, y, w, z, iterations), each batched over B, on
     `device`."""
+    count("lanes", len(A))
     device = resolve_device(device)
     f64 = torch.float64
-    A, b, c = (_tensor(v, device) for v in (A, b, c))
+    A, b, c = _upload((A, b, c), device)
     extra = 0 if ub is None else np.shape(ub.idx2)[-1]
     cols = None
     if mesh is not None and model_size(mesh) > 1:
@@ -281,6 +293,7 @@ def solve_batch_hsd(A, b, c, *,
     return status, x, y, w, z, iters
 
 
+@spanned("solve_batch")
 def solve_batch_intpt(A, b, c, *,
                       max_iter: int = 200,
                       eps: float = 1.0e-6,
@@ -305,8 +318,9 @@ def solve_batch_intpt(A, b, c, *,
     matrices the kernel forms from the strided view A' (B, np_, mp).
 
     Returns (status, x, y, w, z, iterations), each batched over B."""
+    count("lanes", len(A))
     device = resolve_device(device)
-    A, b, c = (_tensor(v, device) for v in (A, b, c))
+    A, b, c = _upload((A, b, c), device)
     B, mp, np_ = A.shape
 
     def run(A_, b_, c_, pause, eps_d, ref_t, dd):
@@ -334,6 +348,7 @@ def solve_batch_intpt(A, b, c, *,
     return _intpt.finish_state(out, max_iter)
 
 
+@spanned("solve_batch")
 def solve_batch_pd(A, b, c, *, max_iter: int = 20000,
                    refresh_every: int = 64, seed: int = 0, draws=None,
                    device="cuda"):
@@ -344,15 +359,18 @@ def solve_batch_pd(A, b, c, *, max_iter: int = 20000,
     simplex.perturbation_draws of the seed.
 
     Returns (status, x, y, w, z, pivots), each batched over B."""
+    count("lanes", len(A))
     device = resolve_device(device)
-    A, b, c = (_tensor(v, device) for v in (A, b, c))
+    A, b, c = _upload((A, b, c), device)
     B, mp, np_ = A.shape
     eye = torch.eye(mp, dtype=A.dtype, device=device).expand(B, mp, mp)
     Afull = torch.cat([A, eye], dim=-1)
     cfull = torch.cat([c, torch.zeros(B, mp, dtype=A.dtype, device=device)],
                       dim=-1)
-    u_x, u_y = (draws if draws is not None else _simplex.perturbation_draws(
-        SolverConfig(seed=seed), mp, np_, lanes=(B,)))
-    return _simplex._pd_loop(Afull, b, cfull, _tensor(u_x, device),
-                             _tensor(u_y, device), max_iter=max_iter,
-                             refresh_every=refresh_every)
+    u_x, u_y = _upload(
+        draws if draws is not None else _simplex.perturbation_draws(
+            SolverConfig(seed=seed), mp, np_, lanes=(B,)), device)
+    with span("stage", precision="f64"):
+        return _simplex._pd_loop(Afull, b, cfull, u_x, u_y,
+                                 max_iter=max_iter,
+                                 refresh_every=refresh_every)

@@ -7,8 +7,9 @@ vanderbei_tpu.utils.checkpoint, so either package can resume the other's
 paused solve; a batched state (every field with a leading lane dim, as
 the JAX package's vmapped solves carry it) crosses the same way.
 operands_from_canon moves a canonical LP (or the structured head/tail
-split) to the device: a plain torch.from_numpy(...).to(device, dtype),
-the counterpart of vanderbei_tpu/ops/assemble.py.
+split) to the device: a plain torch.from_numpy(...).to(device, dtype)
+(to_device, which counts the bytes moved), the counterpart of
+vanderbei_tpu/ops/assemble.py.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..core.lp import Solution
 from ..models.hsd import HsdState
 from ..models.intpt import IntptState
 from ..ops.kkt import UbTail
+from .profiling import count, spanned
 
 _INT_FIELDS = ("iter", "status", "stall")
 
@@ -77,12 +79,28 @@ def load_state(path: str, device, dtype=None):
     return state_from_numpy(d, device, dtype)
 
 
+def _host_to_device(t, device) -> bool:
+    """Whether moving tensor t to `device` copies it from the host to a
+    device (a CPU solve moves nothing across a bus)."""
+    return t.device.type == "cpu" and torch.device(device).type != "cpu"
+
+
+def to_device(a, device, dtype):
+    """a (an array, or a tensor) on `device` in `dtype`.  A host array
+    moved to a device counts its bytes in `dtype` as `h2d_bytes`."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    if _host_to_device(t, device):
+        count("h2d_bytes", t.numel() * dtype.itemsize)
+    return t.to(device, dtype)
+
+
+@spanned("upload")
 def operands_from_canon(canon, device, dtype):
     """(A, b, c, ub) on the device for a CanonLP (ub None) or for the dict
     of registry._hsd_structured_operands (A is the head, ub its tail)."""
-    to = lambda a: torch.from_numpy(np.asarray(a)).to(device, dtype)
+    to = lambda a: to_device(a, device, dtype)
     if isinstance(canon, dict):
-        ub = UbTail(torch.from_numpy(canon["idx2"].astype(np.int64)).to(device),
+        ub = UbTail(to_device(canon["idx2"], device, torch.int64),
                     to(canon["w2"]))
         return to(canon["A1"]), to(canon["b"]), to(canon["c"]), ub
     return to(canon.A), to(canon.b), to(canon.c), None
