@@ -26,7 +26,9 @@ from vanderbei_tpu.models import hsd as jhsd
 from vanderbei_tpu.ops.kkt import UbTail as JUbTail
 from vanderbei_tpu.parallel import batch as jb
 from vanderbei_tpu.utils import checkpoint as jckpt
+from vanderbei_tpu_torch.core import ubtail
 from vanderbei_tpu_torch.core.builder import LPBuilder
+from vanderbei_tpu_torch.core.canonicalize import canonicalize
 from vanderbei_tpu_torch.models import hsd as thsd
 from vanderbei_tpu_torch.models import intpt as tintpt
 from vanderbei_tpu_torch.ops import kkt as tkkt
@@ -120,6 +122,46 @@ def test_group_and_stack_equal(structured, free_vars):
                             b if isinstance(b, tuple) else (b,)):
                 np.testing.assert_array_equal(u, v)
                 assert u.dtype == v.dtype
+
+
+def _arrays(stacked):
+    """A stacked class's arrays, the UbTail's two included."""
+    *head, ub = stacked
+    return [*head, *(() if ub is None else (ub.idx2, ub.w2))]
+
+
+@pytest.mark.parametrize("structured", [False, True])
+def test_group_from_csc_equals_dense(structured):
+    """With use_ub_structure, group_by_class builds each lane that takes
+    the structure straight from its CSC (a UbCanon) and the rest densely;
+    the keys, the lanes and the stacked arrays are bitwise those of the
+    dense canonical forms, in one call whose LPs fall into an "s" and a
+    "d" class (no upper bound; more head rows than columns).  Without it
+    (the pd path) every lane is canonicalize's, unchanged."""
+    lps = _lps()[:3] + [
+        dataclasses.replace(lp, u=np.full(lp.n, np.inf)) for lp in _lps()[:2]]
+    lps.append(random_bounded_lp(58, 60, density=0.1, seed=5))
+    kw = dict(scale="geometric", free_vars="split")
+    classes, aborted = tb.group_by_class(lps, granularity=GRAN,
+                                         use_ub_structure=structured, **kw)
+    dense = {}
+    for idx, lp in enumerate(lps):
+        canon = canonicalize(lp, pad_to=1, **kw)
+        key = tb.class_key(canon, GRAN, structured)
+        dense.setdefault(key, []).append((idx, canon))
+    assert not aborted and list(classes) == list(dense)
+    assert {len(k) == 2 or k[0] for k in classes} == (
+        {"s", "d"} if structured else {True})
+    for key, entries in classes.items():
+        assert [i for i, _ in entries] == [i for i, _ in dense[key]]
+        for (_, got), (_, want) in zip(entries, dense[key]):
+            assert isinstance(got, ubtail.UbCanon) == (key[0] == "s")
+            if got.A is not None:
+                assert got.A.tobytes() == want.A.tobytes()
+        for a, b in zip(_arrays(_stack(key, entries, tb)),
+                        _arrays(_stack(key, dense[key], tb))):
+            assert (a.dtype, a.shape) == (b.dtype, b.shape)
+            assert a.tobytes() == b.tobytes()
 
 
 def test_size_class_equal():

@@ -25,6 +25,8 @@ from vanderbei_tpu import cli as jax_cli
 from vanderbei_tpu.core import lp as jlp
 from vanderbei_tpu.core.builder import LPBuilder
 from vanderbei_tpu_torch import cli
+from vanderbei_tpu_torch.core.canonicalize import canonicalize
+from vanderbei_tpu_torch.models import registry
 from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -145,6 +147,41 @@ def test_builder_free_var_with_upper_bound(use_struct):
     _, got = _compare(_free_with_upper_bound(), free_vars="split",
                       use_ub_structure=use_struct)
     assert got.status == 0 and got.primal_obj == pytest.approx(-2.0, abs=1e-7)
+
+
+def test_suboptimal_hsd_falls_back_to_intpt_on_the_dense_form(monkeypatch):
+    """An hsd verdict of SUBOPTIMAL, forced on a boxed LP that the UbTail
+    path builds from its CSC: the unscaled retry is built the same way,
+    and the intpt cross-check gets the dense canonical form, which solves
+    the LP."""
+    lp = random_bounded_lp(30, 60, seed=5)
+    real_hsd, real_intpt = registry.SOLVERS["hsd"], registry._solve_intpt
+    seen = []
+
+    def suboptimal(canon, cfg, device, stages, **kw):
+        seen.append(("hsd", canon))
+        out = real_hsd(canon, cfg, device, stages, **kw)
+        return (int(vtt.Status.SUBOPTIMAL),) + out[1:]
+
+    def intpt(canon, cfg, device, stages):
+        seen.append(("intpt", canon))
+        return real_intpt(canon, cfg, device, stages)
+
+    monkeypatch.setitem(registry.SOLVERS, "hsd", suboptimal)
+    monkeypatch.setattr(registry, "_solve_intpt", intpt)
+    sol = vtt.solve(lp, config=vtt.SolverConfig(precision="f64", verbose=0),
+                    device="cpu")
+    assert [name for name, _ in seen] == ["hsd", "hsd", "intpt"]
+    (_, scaled), (_, unscaled), (_, dense) = seen
+    assert scaled.A is None and unscaled.A is None
+    assert scaled.row_scale is not None and unscaled.row_scale is None
+    want = canonicalize(lp, scale="geometric")
+    assert dense.A.tobytes() == want.A.tobytes()
+    assert dense.b.tobytes() == want.b.tobytes()
+    assert sol.status == 0 and sol.stages[-1]["precision"] == "f64"
+    ref = vtt.solve(lp, config=vtt.SolverConfig(precision="f64", verbose=0),
+                    device="cpu")
+    assert sol.primal_obj == pytest.approx(ref.primal_obj, rel=1e-6)
 
 
 def _same_out(a: str, b: str):

@@ -17,7 +17,8 @@ from vanderbei_tpu_torch.models import registry
 from vanderbei_tpu_torch.parallel import batch as pb
 from vanderbei_tpu_torch.utils import checkpoint
 from vanderbei_tpu_torch.utils import profiling as P
-from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
+from vanderbei_tpu_torch.utils.randlp import (random_bounded_lp,
+                                              random_bounded_qp)
 
 # one intra-op thread per test process: the xdist workers share a few cores
 torch.set_num_threads(1)
@@ -168,6 +169,49 @@ def test_stage_seconds_are_the_span(runs, name):
     assert len(spans) == len(stages) > 0
     for st, s in zip(stages, spans):
         assert st["seconds"] == (s[5] - s[4]) / 1e9
+
+
+# (canonicalize.structured, canonicalize.dense) of each run: the hsd
+# family's UbTail LPs are built from the CSC, everything else densely
+CANON_COUNTS = {"single-hsd": (1, 0), "single-hsd-dense": (0, 1),
+                "batch-hsd": (3, 0), "batch-pd": (0, 3)}
+
+
+def _assert_canon_counts(rec, structured, dense):
+    """The two counters total `structured` and `dense`, all of it inside
+    canonicalize spans."""
+    for within in (None, {s[0] for s in rec.spans
+                          if s[3] == "canonicalize"}):
+        tot = _totals(rec, within)
+        assert (tot["canonicalize.structured"],
+                tot["canonicalize.dense"]) == (structured, dense)
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_canonicalize_counters(runs, name):
+    _assert_canon_counts(runs[name][4], *CANON_COUNTS[name])
+
+
+@pytest.mark.parametrize("method", ["intpt", "qp"])
+def test_canonicalize_counters_dense_paths(method):
+    """intpt, and a QP (routed from hsd to intpt), canonicalize densely."""
+    if method == "qp":
+        lp, method = random_bounded_qp(20, 40, density=0.2, seed=4), "hsd"
+    else:
+        lp = random_bounded_lp(20, 40, density=0.2, seed=4)
+    cfg = vtt.SolverConfig(precision="f64", verbose=0)
+    sol, rec = _recorded(lambda: vtt.solve(lp, method=method, config=cfg,
+                                           device="cpu"))
+    assert sol.status == 0
+    _assert_canon_counts(rec, 0, 1)
+
+
+def test_canonicalize_counters_off():
+    with P.recording() as rec:
+        pass
+    _single()
+    _batch("hsd")
+    assert rec.counts == {} and P._REC is None
 
 
 def _as_on_a_card(monkeypatch):

@@ -36,8 +36,8 @@ import time
 import numpy as np
 import torch
 
-from ..core.canonicalize import (canonicalize, pad_canon, recover_solution,
-                                 CanonLP)
+from ..core import ubtail
+from ..core.canonicalize import pad_canon, recover_solution, CanonLP
 from ..core.config import SolverConfig
 from ..core.lp import LP, Solution
 from ..core.status import Status
@@ -184,7 +184,8 @@ def _hsd_structured_operands(canon: CanonLP, M1: int | None = None,
                              K: int | None = None, N: int | None = None):
     """Split the canonical rows into [general head | singleton ub tail],
     each padded to its own size class, for the Schur-eliminated KKT path
-    (ops/kkt.UbTail).  Returns None when the structure doesn't apply."""
+    (ops/kkt.UbTail), from a dense CanonLP or a core/ubtail.UbCanon.
+    Returns None when the structure doesn't apply."""
     if not _hsd_structure_applies(canon):
         return None
     k = len(canon.ub_cols)
@@ -193,17 +194,13 @@ def _hsd_structured_operands(canon: CanonLP, M1: int | None = None,
     M1 = M1 if M1 is not None else size_class(m1)
     K = K if K is not None else size_class(k)
     N = N if N is not None else size_class(n)
-    A1 = np.zeros((M1, N), dtype=canon.A.dtype)
-    A1[:m1, :n] = canon.A[:m1, :n]
-    b = np.ones(M1 + K, dtype=canon.A.dtype)
-    b[:m1] = canon.b[:m1]
-    b[M1:M1 + k] = canon.b[m1:m1 + k]
-    c = np.zeros(N, dtype=canon.A.dtype)
-    c[:n] = canon.c[:n]
+    dtype = canon.b.dtype
+    A1 = np.zeros((M1, N), dtype=dtype)
+    b = np.ones(M1 + K, dtype=dtype)
+    c = np.zeros(N, dtype=dtype)
     idx2 = np.zeros(K, dtype=np.int32)
-    idx2[:k] = canon.ub_cols
-    w2 = np.zeros(K, dtype=canon.A.dtype)
-    w2[:k] = canon.A[np.arange(m1, m1 + k), canon.ub_cols]
+    w2 = np.zeros(K, dtype=dtype)
+    ubtail.fill(canon, A1, b, c, idx2, w2)
     return dict(A1=A1, b=b, c=c, idx2=idx2, w2=w2, m1=m1, k=k, M1=M1, K=K)
 
 
@@ -344,9 +341,11 @@ def get_solver(method: str):
             f"unknown method {method!r}; available: {sorted(SOLVERS)}")
 
 
-def _pad(canon: CanonLP, pad_to, structured: bool) -> CanonLP:
+def _pad(canon: CanonLP, pad_to, structured: bool = False) -> CanonLP:
+    if canon.A is None:
+        # a UbCanon: _solve_hsd pads its head and tail itself
+        return canon
     if pad_to == "auto" and not structured:
-        # the structured (UbTail) path pads its head and tail itself
         return pad_canon(canon, size_class(canon.m), size_class(canon.n))
     if isinstance(pad_to, int) and pad_to != 1:
         return pad_canon(canon, -(-canon.m // pad_to) * pad_to,
@@ -390,23 +389,24 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         raise ValueError(
             f"mesh (tensor-parallel) solve supports the hsd family, "
             f"not {method!r}")
-    with span("canonicalize"):
-        canon = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
-                             free_vars=cfg.free_vars, scale=cfg.scale)
+    # the UbTail path is built straight from the CSC (core/ubtail.py):
+    # a UbCanon carries no dense A, and its operands are padded in
+    # _solve_hsd
+    structured = hsd_family and cfg.use_ub_structure
+    canon = ubtail.canonical(lp, structured, scale=cfg.scale,
+                             free_vars=cfg.free_vars, dtype=cfg.dtype)
     if canon.status != int(Status.RUNNING):
         n, m0 = lp.n, lp.m
         return Solution(status=canon.status, x=np.zeros(n), y=np.zeros(m0),
                         w=np.zeros(m0), z=np.zeros(n), primal_obj=0.0,
                         dual_obj=0.0, stages=[])
-    structured = (hsd_family and cfg.use_ub_structure
-                  and _hsd_structure_applies(canon))
     with span("pad"):
-        canon = _pad(canon, pad_to, structured)
+        canon = _pad(canon, pad_to)
         kw = {}
         if mesh is not None:
             kw["mesh"] = mesh
             size = model_size(mesh)
-            if not structured and canon.n % size:
+            if canon.A is not None and canon.n % size:
                 canon = pad_canon(canon, canon.m, -(-canon.n // size) * size)
     stages: list = []
     t0 = time.perf_counter()
@@ -418,12 +418,10 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         # perturbed optimum); keep the retry only if it is OPTIMAL
         if cfg.verbose:
             print("hsd suboptimal: retrying unscaled", flush=True)
-        with span("canonicalize"):
-            canon2 = canonicalize(lp, pad_to=1, dtype=cfg.dtype,
-                                  free_vars=cfg.free_vars, scale="none")
+        canon2 = ubtail.canonical(lp, structured, scale="none",
+                                  free_vars=cfg.free_vars, dtype=cfg.dtype)
         with span("pad"):
-            canon2 = _pad(canon2, pad_to, cfg.use_ub_structure
-                          and _hsd_structure_applies(canon2))
+            canon2 = _pad(canon2, pad_to)
         st2, x2, y2, w2, z2, it2 = solver(canon2, cfg.with_(scale="none"),
                                           device, stages)
         if st2 == int(Status.OPTIMAL):
@@ -439,7 +437,14 @@ def solve(lp: LP, method: str = "hsd", config: SolverConfig | None = None,
         if cfg.verbose:
             print("hsd suboptimal (phi collapse): falling back to intpt",
                   flush=True)
-        st2, x2, y2, w2, z2, it2 = _solve_intpt(canon, cfg, device, stages)
+        dense = canon
+        if dense.A is None:
+            # the one reader of the dense canonical A on the UbTail path
+            dense = _pad(ubtail.canonical(lp, False, scale=cfg.scale,
+                                          free_vars=cfg.free_vars,
+                                          dtype=cfg.dtype),
+                         pad_to, structured=True)
+        st2, x2, y2, w2, z2, it2 = _solve_intpt(dense, cfg, device, stages)
         if st2 == int(Status.OPTIMAL):
             status, x, y, w, z = st2, x2, y2, w2, z2
             iters = iters + it2

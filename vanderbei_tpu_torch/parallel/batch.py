@@ -33,14 +33,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.canonicalize import canonicalize
+from ..core import ubtail
 from ..core.config import SolverConfig
 from ..core.status import Status
 from ..models import hsd as _hsd
 from ..models import intpt as _intpt
 from ..models import simplex as _simplex
-from ..models.registry import (_hsd_structure_applies,
-                               _hsd_structured_operands, resolve_device)
+from ..models.registry import _hsd_structure_applies, resolve_device
 from ..ops.kkt import UbTail, where_lanes
 from ..utils.checkpoint import to_device
 from ..utils.profiling import Span, count, host_read, span, spanned
@@ -74,7 +73,9 @@ def class_key(canon, granularity: int, use_ub_structure: bool) -> tuple:
 def group_by_class(lps, granularity: int = 128,
                    use_ub_structure: bool = False, scale: str = "none",
                    free_vars: str = "reject"):
-    """Canonicalize each LP and bucket by padded shape (class_key).
+    """Canonicalize each LP and bucket by padded shape (class_key).  With
+    use_ub_structure an LP that takes the UbTail structure is built
+    straight from its CSC (core/ubtail.py, a UbCanon without a dense A).
 
     Returns ({key: [(index, CanonLP), ...]} over the input order, and
     [(index, status)] of the LPs whose canonicalization aborts, e.g. on a
@@ -82,8 +83,7 @@ def group_by_class(lps, granularity: int = 128,
     classes: dict = {}
     aborted = []
     for idx, lp in enumerate(lps):
-        with span("canonicalize"):
-            canon = canonicalize(lp, pad_to=1, scale=scale,
+        canon = ubtail.canonical(lp, use_ub_structure, scale=scale,
                                  free_vars=free_vars)
         if canon.status != int(Status.RUNNING):
             aborted.append((idx, canon.status))
@@ -113,7 +113,8 @@ def stack_class_structured(entries, M1: int, N: int, K: int,
                            dtype=np.float64):
     """Stack a STRUCTURED size class: head A1 (B, M1, N), b (B, M1+K),
     c (B, N) plus the batched UbTail (idx2, w2 each (B, K); w2 = 0 marks
-    padding tail rows)."""
+    padding tail rows).  Each lane's operands are written into its slice
+    (core/ubtail.fill), from a UbCanon's triples or a dense CanonLP."""
     B = len(entries)
     A1 = np.zeros((B, M1, N), dtype=dtype)
     b = np.ones((B, M1 + K), dtype=dtype)
@@ -121,13 +122,9 @@ def stack_class_structured(entries, M1: int, N: int, K: int,
     idx2 = np.zeros((B, K), dtype=np.int32)
     w2 = np.zeros((B, K), dtype=dtype)
     for j, (_, canon) in enumerate(entries):
-        s = _hsd_structured_operands(canon, M1=M1, K=K, N=N)
-        assert s is not None, "structured class entry lost its structure"
-        A1[j] = s["A1"]
-        b[j] = s["b"]
-        c[j] = s["c"]
-        idx2[j] = s["idx2"]
-        w2[j] = s["w2"]
+        assert _hsd_structure_applies(canon), \
+            "structured class entry lost its structure"
+        ubtail.fill(canon, A1[j], b[j], c[j], idx2[j], w2[j])
     return A1, b, c, UbTail(idx2, w2)
 
 

@@ -14,12 +14,14 @@ The recorder keeps, in memory, the spans the program opens at its layer
 boundaries (solve, canonicalize, pad, upload, stage, fetch; group_by_class,
 stack, solve_batch, gather_lanes; normal_matrix, factor, kkt_solve;
 graph_capture) and the counters it bumps (h2d_bytes, host_reads, a batch
-entry's lanes), each counter attributed to the innermost open span.  A
-span's start and end are time.perf_counter_ns() readings, the clock a
-caller can tie to a device trace.  It is off unless a `recording()` is
-open; off, `span` returns a shared no-op context, `count` returns and a
-`spanned` function calls straight through, each after one test of a
-module global, making no record.  No span or counter synchronizes
+entry's lanes, canonicalize.structured and canonicalize.dense: an LP built
+from its CSC by core/ubtail or densely by canonicalize), each counter
+attributed to the innermost open span.  A span's start and end are
+time.perf_counter_ns() readings, the clock a caller can tie to a device
+trace.  It is off unless a `recording()` is open; off, `span` returns a
+shared no-op context, `count` returns and a `spanned` function calls
+straight through, each after one test of a module global, making no
+record.  No span or counter synchronizes
 the device, reads a tensor or launches anything, on or off; the reads
 that `host_read` counts are the program's own.
 """
