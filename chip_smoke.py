@@ -93,12 +93,23 @@ Phases, one line each; any failure exits non-zero and prints no result:
    the warm-up's equal to phase 10's; each rank one launch per f32
    iteration at (8, 1024, 1536); t_single_s, t_sharded_s, overhead_frac,
    each rank's device-busy share and the tool's JSON line.
-18. every (shape, layout) the solves of phases 4-6, 10-11 and 13-17
+19. hsd-graph: the smoke LP (phase 4's, made in memory) and a PILOT87-
+   shaped LP (2030 x 4883, the benchmark's pilot87-hsd shape) solved
+   twice each by solve() on the card, cold then warm, with the loop's
+   CUDA graph (models/hsd.py: one replay an iteration) and forced eager
+   (the test-only hook hsd._graph_engages): the same statuses and
+   iterations, objectives within 1e-12 relative, and kernel launches on
+   the same paths, as many as the f32 stage's replays (each launches the
+   kernel, its step kept or not) and redos (each launches it once more);
+   the graph counters (captures cold and warm, replays, redos) and both
+   warm times.
+18. every (shape, layout) the solves of phases 4-6, 10-11, 13-17 and 19
    handed the kernel (the ranks' too) is one that phase 3 held against
    the plain version, or the run fails; then phases 7-9, the total time,
    the kernels' JSON line (launches split by path: hsd, intpt, qp,
    batch-hsd, batch-intpt, mesh-tp, mesh-nccl, mesh-batch, mesh-dd,
-   dp-scaling), the card line, and {"ok": true, "device": {...}} last.
+   dp-scaling, hsd-graph), the card line, and {"ok": true, "device":
+   {...}} last.
 
 Phases 13, 16 and 17 share one spawn of their 2 ranks (run_pair), whose
 records each phase then checks.  A rank that fails or outlasts its limit
@@ -133,6 +144,7 @@ MESH_RTOL = 1e-9           # a tensor-parallel solve against phase 4's
 NCCL_RTOL = 1e-12          # ... on a world of 1
 MESH_DD_RTOL = 1e-12       # a tensor-parallel "dd" solve against one card's
 MESH_ITERS = 2             # two shards reassociate the f32 sprint's sums
+GRAPH_RTOL = 1e-12         # the hsd loop's CUDA graph against eager
 RANK_TIMEOUT_S = 300
 INTPT_RTOL = 1e-6          # intpt stops at ipm_eps = 1e-6 (core/config.py)
 FEAS_RTOL = 1e-6
@@ -199,7 +211,9 @@ def check_kernel(syrk, torch):
              # phase 17: a rank's 8 lanes of the phase-10 class, all columns;
              # tools/multichip_scaling.py --ranks 4: a rank's 4 lanes
              ("dp-shard", (8, 1024, 1536), {}),
-             ("dp-shard-4", (4, 1024, 1536), {})]
+             ("dp-shard-4", (4, 1024, 1536), {}),
+             # phase 19: the PILOT87-shaped LP's UbTail head, padded
+             ("pilot87-head", (2560, 5120), {})]
     head_err = None
     checked = set()
     for label, shape, kw in cases:
@@ -1057,6 +1071,84 @@ def check_dp_scaling(card, results, lane_iters, seen, world=2,
     return sum(r["launches"][shard] for r in first)
 
 
+def graph_counts(rec):
+    """(captures, replays, redos, the f32 stages' replays that launched
+    the kernel: every replay there, live or not, and every redo) a
+    recording counted."""
+    precision = {s[0]: s[6].get("precision") for s in rec.spans
+                 if s[3] == "stage"}
+    tot = dict.fromkeys(("captures", "replays", "redos"), 0)
+    f32 = 0
+    for sid, counts in rec.counts.items():
+        for k in tot:
+            tot[k] += counts.get(f"hsd.graph.{k}", 0)
+        if precision.get(sid) == "f32":
+            f32 += (counts.get("host_reads.hsd.graph", 0)
+                    + counts.get("hsd.graph.redos", 0))
+    return tot["captures"], tot["replays"], tot["redos"], f32
+
+
+def check_hsd_graph(syrk, torch, device="cuda"):
+    """Phase 19: returns the graph solves' kernel launches (warm)."""
+    from vanderbei_tpu_torch import solve
+    from vanderbei_tpu_torch.models import hsd
+    from vanderbei_tpu_torch.utils import profiling
+    from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
+    lps = {"smoke 2000x4000": random_bounded_lp(2000, 4000, density=0.02,
+                                                seed=0),
+           "pilot87 2030x4883": random_bounded_lp(2030, 4883, density=0.02,
+                                                  seed=1)}
+    real = hsd._graph_engages
+    hsd._GRAPHS.clear()       # phase 4 captured the smoke LP's graphs
+    total = 0
+    for name, lp in lps.items():
+        runs = {}
+        for mode in ("eager", "graph"):
+            if mode == "eager":
+                hsd._graph_engages = lambda *args: False
+            try:
+                with profiling.recording() as cold:
+                    solve(lp, device=device)
+                syrk.reset_counts()
+                with profiling.recording() as warm:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sol = solve(lp, device=device)
+                    secs = time.perf_counter() - t0
+                runs[mode] = (sol, secs, dict(syrk.route_launches),
+                              graph_counts(cold), graph_counts(warm))
+            finally:
+                hsd._graph_engages = real
+        (se, te, le, _, ce), (sg, tg, lg, cg_cold, cg) = (runs["eager"],
+                                                          runs["graph"])
+        rel = abs(sg.primal_obj - se.primal_obj) / max(1.0, abs(se.primal_obj))
+        share = cg[2] / cg[1] if cg[1] else float("nan")
+        print(f"hsd-graph {name} on {device}: status {sg.status} / eager "
+              f"{se.status}, iterations {sg.iterations} / {se.iterations}, "
+              f"objective rel {rel:.3e}; kernel launches {lg} / eager {le} "
+              f"({cg[3]} f32 replays and redos); captures cold "
+              f"{cg_cold[0]} warm {cg[0]}, replays {cg[1]}, redos "
+              f"{cg[2]} (share {share:.3f}); warm {tg:.3f} s / eager "
+              f"{te:.3f} s ({te / tg:.2f}x)", flush=True)
+        if ce[:3] != (0, 0, 0):
+            fail(f"the forced-eager solve of {name} used the graph: {ce}")
+        if (sg.status, sg.iterations) != (se.status, se.iterations):
+            fail(f"{name}: graph {sg.status}/{sg.iterations} against eager "
+                 f"{se.status}/{se.iterations}")
+        if not rel <= GRAPH_RTOL:
+            fail(f"{name}: objectives {rel:.3e} apart")
+        # the same paths; a replay launches the kernel whether or not its
+        # step is kept, and a redo launches it once more
+        if set(lg) != set(le) or sum(lg.values()) != cg[3]:
+            fail(f"{name}: launches {lg}, eager {le}, f32 replays and redos "
+                 f"{cg[3]}")
+        if cg_cold[0] == 0 or cg[0] != 0 or cg[1] == 0:
+            fail(f"{name}: captures {cg_cold[0]} cold, {cg[0]} warm, "
+                 f"replays {cg[1]}")
+        total += sum(lg.values())
+    return total
+
+
 def check_dd_metrics(work, device="cuda", m=500, n=1000):
     """Phase 7."""
     import numpy as np
@@ -1212,6 +1304,8 @@ def main() -> int:
     by_path["dp-scaling"] = check_dp_scaling(card, pair["dp"], lane_iters,
                                              seen)
     end("dp-scaling")
+    by_path["hsd-graph"] = check_hsd_graph(syrk, torch)
+    end("hsd-graph")
     unchecked = seen - checked
     print(f"kernel shapes of the solves: {sorted(seen)}; each held against "
           f"the plain version in phase 3: {not unchecked}", flush=True)

@@ -2,7 +2,9 @@
 the CPU: a recorded solve returns what an unrecorded one does, bit for
 bit; the span tree of a request, each stage record's seconds, the bytes
 uploaded and the host reads are what the program did; and a recorder that
-is off records nothing.
+is off records nothing.  The hsd loop's CUDA graph counts its captures,
+replays, redos and reads (run on the CPU as on a card), and a replay
+counts the kernel launches it makes.
 """
 
 import tracemalloc
@@ -13,9 +15,11 @@ import pytest
 import torch
 
 import vanderbei_tpu_torch as vtt
-from vanderbei_tpu_torch.models import registry
+from tests.test_torch_hsd_graph import _fake_cuda, _graph_on_cpu
+from vanderbei_tpu_torch.models import hsd, registry
+from vanderbei_tpu_torch.ops import syrk
 from vanderbei_tpu_torch.parallel import batch as pb
-from vanderbei_tpu_torch.utils import checkpoint
+from vanderbei_tpu_torch.utils import checkpoint, graphs
 from vanderbei_tpu_torch.utils import profiling as P
 from vanderbei_tpu_torch.utils.randlp import (random_bounded_lp,
                                               random_bounded_qp)
@@ -343,3 +347,56 @@ def test_spanned_records_each_call():
     (sid, parent, _, name, *_), outer = rec.spans
     assert (name, parent) == ("work", outer[0])
     assert rec.counts == {sid: {"host_reads": 3}}
+
+
+GRAPH_COUNTERS = ("hsd.graph.captures", "hsd.graph.replays",
+                  "hsd.graph.retries", "hsd.graph.redos",
+                  "host_reads.hsd.graph")
+
+
+def test_graph_counters(monkeypatch):
+    """The loop's CUDA graph (models/hsd.py, run on the CPU as on a card):
+    captures, replays, Tikhonov retries, eager redos and its read an
+    iteration are counted inside the stage spans with the recorder on,
+    and not at all off."""
+    _graph_on_cpu(monkeypatch)
+    with P.recording() as off:
+        pass
+    _single()
+    assert off.counts == {}
+    # no solve meets the refinement target: eager redos; the first
+    # factor at level 0 fails: a retry
+    cfg = vtt.SolverConfig(precision="f64", refine_tol=1e-30)
+    sol, rec = _recorded(lambda: vtt.solve(_lp(), config=cfg, device="cpu"))
+    inside = _totals(rec, _descendants(rec, {"stage"}))
+    tot = _totals(rec)
+    for name in GRAPH_COUNTERS:
+        assert inside[name] == tot[name] > 0, name
+    assert tot["hsd.graph.captures"] == len(hsd.REFINE_PASSES)
+    assert tot["hsd.graph.replays"] >= sol.iterations
+    assert tot["host_reads.hsd.graph"] - tot["hsd.graph.replays"] in (0, 1)
+    assert (tot["hsd.graph.retries"] + tot["hsd.graph.redos"]
+            <= tot["hsd.graph.replays"])
+    assert "host_reads.hsd.loop" not in tot
+
+
+def test_replay_counts_kernel_launches(monkeypatch):
+    """utils/graphs.capture: the warm-up's kernel launches count, the
+    capture's (which launch nothing) do not, and each replay counts them
+    again, by path and by shape (ops/syrk's counters)."""
+    replays = _fake_cuda(monkeypatch)
+    path, shape = "tma/k-contiguous", ((2560, 5120), "k-contiguous")
+
+    def launch():
+        syrk.add_counts(({path: 1}, {shape: 1}))
+        return "out"
+
+    syrk.reset_counts()
+    try:
+        replay = graphs.capture(launch)
+        assert syrk.counts() == ({path: 1}, {shape: 1})    # the warm-up
+        assert [replay(), replay()] == ["out", "out"] and len(replays) == 2
+        assert syrk.counts() == ({path: 3}, {shape: 3})
+        assert syrk.launch_count() == 3
+    finally:
+        syrk.reset_counts()

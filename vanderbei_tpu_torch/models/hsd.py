@@ -36,6 +36,7 @@ sum with or without it, as the JAX package's is.
 from __future__ import annotations
 
 import time
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -43,10 +44,11 @@ import torch
 
 from ..core.status import Status
 from ..ops.kkt import (dot as _dot, kkt_factor, kkt_solve, local,
-                       mv as _mv, UbTail, tail_matvec, tail_rmatvec,
-                       where_lanes)
+                       mv as _mv, next_reg, UbTail, tail_matvec,
+                       tail_rmatvec, where_lanes)
 from ..ops.quad import DD, dot2, dot2_dd, matvec2, matvec2_dd
-from ..utils.profiling import host_read
+from ..utils.graphs import capture, copy_into
+from ..utils.profiling import count, host_read
 
 DEFAULT_MAX_ITER = 200      # hsd.c:25
 DEFAULT_MAX_ITER_LS = 600   # hsdls.c:25
@@ -280,127 +282,130 @@ def make_step(A, b, c, *,
         return _Decision(mu, delta, primal_obj, dual_obj, rho, sigma,
                          new_status, mu_best2, stall2)
 
-    def body(s: HsdState, live=None, pre=None, step=None) -> HsdState:
+    def advance(s: HsdState, pre: _Decision, stepping, passes=None):
+        """The step from s: the new (x, z, y, w, phi, psi, reg).  stepping:
+        the lanes that step (None: all of them).  passes: the read-free
+        form, a single factor at the sticky level and that many masked
+        refinement passes a solve (kkt_factor's retry=False, kkt_solve's
+        passes), which returns besides the steps the form with reads would
+        take further: (a factor retry is due, a solve wants a pass
+        more)."""
         x, z, y, w = s.x, s.z, s.y, s.w
         phi, psi = col(s.phi), col(s.psi)
-        (mu, delta, primal_obj, dual_obj, rho, sigma, new_status, mu_best2,
-         stall2) = decide(s) if pre is None else pre
+        mu, delta, primal_obj, dual_obj, rho, sigma = pre[:6]
+        D = z / x
+        E = w / y
+        fac = kkt_factor(A, E, D, epsdiag, factor_dtype=factor_dtype,
+                         ub=ub, reg0=s.reg, active=stepping, cols=cols,
+                         retry=passes is None)
+        more = []
 
-        if trace:
-            _trace_row(s.iter, primal_obj / phi + f,
-                       torch.sqrt(dot(rho, rho)) / phi, dual_obj / phi + f,
-                       torch.sqrt(nsum(ndot(sigma, sigma))) / phi, mu)
-
-        # the lanes whose step is kept: live and still undecided (all of
-        # them, when the caller has read that a single LP steps)
-        known = bool(step) and not batched
-        stepping = None if known else row(new_status == _RUNNING)
-        if live is not None:
-            stepping = stepping & live
-
-        def advance():
-            D = z / x
-            E = w / y
-            fac = kkt_factor(A, E, D, epsdiag, factor_dtype=factor_dtype,
-                             ub=ub, reg0=s.reg, active=stepping, cols=cols)
-            solve = lambda ry, rx: kkt_solve(
+        def solve(ry, rx):
+            out = kkt_solve(
                 A, E, D, fac, ry, rx, epsdiag=epsdiag, refine_tol=refine_tol,
                 max_refine=max_refine, compensated=compensated, ub=ub,
-                active=stepping, cols=cols)
+                active=stepping, cols=cols, passes=passes)
+            if passes is None:
+                return out
+            more.append(out[2])
+            return out[:2]
 
-            def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
-                """Fold a (delta, second-order) Newton system through the
-                shared f/g combination (hsd.c:230-238)."""
-                cfx, cgx = nsum(ndot(c, fx), ndot(c, gx))
-                dphi = ((cfx - dot(b, fy)
-                         + (-(1.0 - dlt) * (dual_obj - primal_obj + psi)
-                            + psi - dlt * mu / phi + so_phi / phi))
-                        / (cgx - dot(b, gy) - psi / phi))
-                dx = fx - gx * dphi
-                dy = fy - gy * dphi
-                dz = dlt * mu / x - z - D * dx - so_x / x
-                dw = dlt * mu / y - w - E * dy - so_y / y
-                dpsi = dlt * mu / phi - psi - (psi / phi) * dphi - so_phi / phi
-                return dx, dy, dz, dw, dphi, dpsi
+        def directions(dlt, so_x, so_y, so_phi, gy, gx, fy, fx):
+            """Fold a (delta, second-order) Newton system through the
+            shared f/g combination (hsd.c:230-238)."""
+            cfx, cgx = nsum(ndot(c, fx), ndot(c, gx))
+            dphi = ((cfx - dot(b, fy)
+                     + (-(1.0 - dlt) * (dual_obj - primal_obj + psi)
+                        + psi - dlt * mu / phi + so_phi / phi))
+                    / (cgx - dot(b, gy) - psi / phi))
+            dx = fx - gx * dphi
+            dy = fy - gy * dphi
+            dz = dlt * mu / x - z - D * dx - so_x / x
+            dw = dlt * mu / y - w - E * dy - so_y / y
+            dpsi = dlt * mu / phi - psi - (psi / phi) * dphi - so_phi / phi
+            return dx, dy, dz, dw, dphi, dpsi
 
-            def f_rhs(dlt, so_x, so_y):
-                rho_rhs = -(1.0 - dlt) * rho + w - dlt * mu / y + so_y / y
-                sigma_rhs = -(1.0 - dlt) * sigma + z - dlt * mu / x + so_x / x
-                return rho_rhs, sigma_rhs
+        def f_rhs(dlt, so_x, so_y):
+            rho_rhs = -(1.0 - dlt) * rho + w - dlt * mu / y + so_y / y
+            sigma_rhs = -(1.0 - dlt) * sigma + z - dlt * mu / x + so_x / x
+            return rho_rhs, sigma_rhs
 
-            zero_x = torch.zeros_like(x)
-            zero_y = torch.zeros_like(y)
-            zero_s = torch.zeros_like(phi)
+        zero_x = torch.zeros_like(x)
+        zero_y = torch.zeros_like(y)
+        zero_s = torch.zeros_like(phi)
 
-            if corrector == "mehrotra" and not long_step:
-                # predictor: affine f-system and the g-system in one
-                # 2-column solve through the factor
-                r_aff, s_aff = f_rhs(0.0, zero_x, zero_y)
-                sy, sx = solve(torch.stack([r_aff, -b], dim=-1),
-                               torch.stack([-s_aff, -c], dim=-1))
-                fy, gy = sy[..., 0], sy[..., 1]
-                fx, gx = sx[..., 0], sx[..., 1]
-                dx_a, dy_a, dz_a, dw_a, dphi_a, dpsi_a = directions(
-                    0.0, zero_x, zero_y, zero_s, gy, gx, fy, fx)
+        if corrector == "mehrotra" and not long_step:
+            # predictor: affine f-system and the g-system in one
+            # 2-column solve through the factor
+            r_aff, s_aff = f_rhs(0.0, zero_x, zero_y)
+            sy, sx = solve(torch.stack([r_aff, -b], dim=-1),
+                           torch.stack([-s_aff, -c], dim=-1))
+            fy, gy = sy[..., 0], sy[..., 1]
+            fx, gx = sx[..., 0], sx[..., 1]
+            dx_a, dy_a, dz_a, dw_a, dphi_a, dpsi_a = directions(
+                0.0, zero_x, zero_y, zero_s, gy, gx, fy, fx)
 
-                # full affine step to the boundary -> adaptive centering
-                t_a = _max(*nmax(vmax(-dx_a / x), vmax(-dz_a / z)),
-                           vmax(-dy_a / y), vmax(-dw_a / w),
-                           -dphi_a / phi, -dpsi_a / psi)
-                th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
-                                   one)
-                mu_aff = (nsum(ndot(z + th_a * dz_a, x + th_a * dx_a))
-                          + dot(w + th_a * dw_a, y + th_a * dy_a)
-                          + (phi + th_a * dphi_a) * (psi + th_a * dpsi_a)
-                          ) / (n + m + 1)
-                sig = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
+            # full affine step to the boundary -> adaptive centering
+            t_a = _max(*nmax(vmax(-dx_a / x), vmax(-dz_a / z)),
+                       vmax(-dy_a / y), vmax(-dw_a / w),
+                       -dphi_a / phi, -dpsi_a / psi)
+            th_a = torch.where(t_a > 0.0, torch.minimum(1.0 / t_a, one),
+                               one)
+            mu_aff = (nsum(ndot(z + th_a * dz_a, x + th_a * dx_a))
+                      + dot(w + th_a * dw_a, y + th_a * dy_a)
+                      + (phi + th_a * dphi_a) * (psi + th_a * dpsi_a)
+                      ) / (n + m + 1)
+            sig = torch.clamp((mu_aff / mu) ** 3, 0.0, 1.0)
 
-                # corrector: second-order products (Mehrotra's
-                # sigma*mu - dX_a dZ_a right-hand side)
-                so_x, so_y = dx_a * dz_a, dy_a * dw_a
-                so_phi = dphi_a * dpsi_a
-                r_c, s_c = f_rhs(sig, so_x, so_y)
-                cy, cx = solve(r_c.unsqueeze(-1), -s_c.unsqueeze(-1))
-                dx, dy, dz, dw, dphi, dpsi = directions(
-                    sig, so_x, so_y, so_phi, gy, gx, cy[..., 0], cx[..., 0])
-            else:
-                rho_rhs, sigma_rhs = f_rhs(delta, zero_x, zero_y)
-                sy, sx = solve(torch.stack([rho_rhs, -b], dim=-1),
-                               torch.stack([-sigma_rhs, -c], dim=-1))
-                fy, gy = sy[..., 0], sy[..., 1]
-                fx, gx = sx[..., 0], sx[..., 1]
-                dx, dy, dz, dw, dphi, dpsi = directions(
-                    delta, zero_x, zero_y, zero_s, gy, gx, fy, fx)
-
-            if long_step:
-                theta = torch.minimum(
-                    nmin(vmin(_hsd_linesearch(x, dx, z, dz, beta, delta, mu))),
-                    vmin(_hsd_linesearch(y, dy, w, dw, beta, delta, mu)))
-                theta = torch.minimum(theta, _hsd_linesearch(
-                    phi, dphi, psi, dpsi, beta, delta, mu))
-                theta = torch.minimum(theta, one)
-                theta = torch.where(theta < 1.0, theta * 0.9999, theta)
-            else:
-                t = _max(*nmax(vmax(-dx / x), vmax(-dz / z)),
-                         vmax(-dy / y), vmax(-dw / w),
-                         -dphi / phi, -dpsi / psi)
-                theta = torch.where(t > 0.0,
-                                    torch.minimum(step_factor / t, one), one)
-
-            return (x + theta * dx, z + theta * dz,
-                    y + theta * dy, w + theta * dw,
-                    phi + theta * dphi, psi + theta * dpsi,
-                    col(fac.reg.to(dtype)))
-
-        old = (x, z, y, w, phi, psi, col(s.reg))
-        if step is False:
-            x2, z2, y2, w2, phi2, psi2, reg2 = old
-        elif known:
-            x2, z2, y2, w2, phi2, psi2, reg2 = advance()
+            # corrector: second-order products (Mehrotra's
+            # sigma*mu - dX_a dZ_a right-hand side)
+            so_x, so_y = dx_a * dz_a, dy_a * dw_a
+            so_phi = dphi_a * dpsi_a
+            r_c, s_c = f_rhs(sig, so_x, so_y)
+            cy, cx = solve(r_c.unsqueeze(-1), -s_c.unsqueeze(-1))
+            dx, dy, dz, dw, dphi, dpsi = directions(
+                sig, so_x, so_y, so_phi, gy, gx, cy[..., 0], cx[..., 0])
         else:
-            go = col(stepping)
-            x2, z2, y2, w2, phi2, psi2, reg2 = (
-                torch.where(go, new, prev) for new, prev in zip(advance(), old))
+            rho_rhs, sigma_rhs = f_rhs(delta, zero_x, zero_y)
+            sy, sx = solve(torch.stack([rho_rhs, -b], dim=-1),
+                           torch.stack([-sigma_rhs, -c], dim=-1))
+            fy, gy = sy[..., 0], sy[..., 1]
+            fx, gx = sx[..., 0], sx[..., 1]
+            dx, dy, dz, dw, dphi, dpsi = directions(
+                delta, zero_x, zero_y, zero_s, gy, gx, fy, fx)
+
+        if long_step:
+            theta = torch.minimum(
+                nmin(vmin(_hsd_linesearch(x, dx, z, dz, beta, delta, mu))),
+                vmin(_hsd_linesearch(y, dy, w, dw, beta, delta, mu)))
+            theta = torch.minimum(theta, _hsd_linesearch(
+                phi, dphi, psi, dpsi, beta, delta, mu))
+            theta = torch.minimum(theta, one)
+            theta = torch.where(theta < 1.0, theta * 0.9999, theta)
+        else:
+            t = _max(*nmax(vmax(-dx / x), vmax(-dz / z)),
+                     vmax(-dy / y), vmax(-dw / w),
+                     -dphi / phi, -dpsi / psi)
+            theta = torch.where(t > 0.0,
+                                torch.minimum(step_factor / t, one), one)
+
+        new = (x + theta * dx, z + theta * dz,
+               y + theta * dy, w + theta * dw,
+               phi + theta * dphi, psi + theta * dpsi,
+               col(fac.reg.to(dtype)))
+        if passes is None:
+            return new
+        return new, (fac.bad & (fac.reg < 1.0e-2), torch.stack(more).any())
+
+    def unchanged(s: HsdState):
+        """advance's tuple for a lane that does not step."""
+        return (s.x, s.z, s.y, s.w, col(s.phi), col(s.psi), col(s.reg))
+
+    def finish(s: HsdState, pre: _Decision, new) -> HsdState:
+        """The next state from the step's (x, z, y, w, phi, psi, reg)."""
+        x, z, y, w = s.x, s.z, s.y, s.w
+        phi, psi = col(s.phi), col(s.psi)
+        x2, z2, y2, w2, phi2, psi2, reg2 = new
 
         # numerical-failure guard: a step with any non-finite value keeps
         # the last finite iterate and stops SUBOPTIMAL (hsdls.c:151)
@@ -411,14 +416,65 @@ def make_step(A, b, c, *,
         def pick(new, prev):
             return torch.where(ok, new, prev)
 
-        out = HsdState(pick(x2, x), pick(z2, z), pick(y2, y),
-                       pick(w2, w), *(row(t) for t in (
-                           pick(phi2, phi), pick(psi2, psi), col(s.iter) + 1,
-                           torch.where(ok, new_status, _SUBOPTIMAL),
-                           reg2, mu_best2, stall2)))
+        return HsdState(pick(x2, x), pick(z2, z), pick(y2, y),
+                        pick(w2, w), *(row(t) for t in (
+                            pick(phi2, phi), pick(psi2, psi), col(s.iter) + 1,
+                            torch.where(ok, pre.new_status, _SUBOPTIMAL),
+                            reg2, pre.mu_best, pre.stall)))
+
+    def body(s: HsdState, live=None, pre=None, step=None) -> HsdState:
+        pre = decide(s) if pre is None else pre
+
+        if trace:
+            phi = col(s.phi)
+            _trace_row(s.iter, pre.primal_obj / phi + f,
+                       torch.sqrt(dot(pre.rho, pre.rho)) / phi,
+                       pre.dual_obj / phi + f,
+                       torch.sqrt(nsum(ndot(pre.sigma, pre.sigma))) / phi,
+                       pre.mu)
+
+        # the lanes whose step is kept: live and still undecided (all of
+        # them, when the caller has read that a single LP steps)
+        known = bool(step) and not batched
+        stepping = None if known else row(pre.new_status == _RUNNING)
+        if live is not None:
+            stepping = stepping & live
+
+        if step is False:
+            new = unchanged(s)
+        elif known:
+            new = advance(s, pre, stepping)
+        else:
+            go = col(stepping)
+            new = tuple(torch.where(go, a, b) for a, b in
+                        zip(advance(s, pre, stepping), unchanged(s)))
+        out = finish(s, pre, new)
         return out if live is None else where_lanes(live, out, s)
 
+    def speculate(s: HsdState, max_iter: int, pause, passes: int):
+        """One iteration of a single LP that reads nothing on the host (the
+        body of the CUDA graph _hsd_loop replays): the loop's live test,
+        the step in advance's read-free form, kept only where the LP steps
+        as body keeps it, and the flags [live, retry, refine, live next]:
+        retry where the LP steps and its factor failed below the last
+        Tikhonov level (body would refactor at next_reg of it), refine
+        where it steps and a solve wanted a refinement pass more, live
+        next the loop's live test on the new state.  The new state is
+        body(s, None, decide(s), step) bit for bit where neither retry
+        nor refine is set."""
+        pre = decide(s)
+        live = (s.status == _RUNNING) & (s.iter < max_iter) & (pre.mu > pause)
+        stepping = live & (pre.new_status == _RUNNING)
+        new, (retry, refine) = advance(s, pre, None, passes)
+        out = finish(s, pre, tuple(torch.where(stepping, a, b) for a, b in
+                                   zip(new, unchanged(s))))
+        live_next = ((out.status == _RUNNING) & (out.iter < max_iter)
+                     & (_mu(out, n + m + 1) > pause))
+        return out, torch.stack([live, stepping & retry, stepping & refine,
+                                 live_next])
+
     body.decide = decide
+    body.speculate = speculate
     return body
 
 
@@ -435,6 +491,102 @@ def past_deadline(deadline: float, like, cols=None) -> bool:
         return late
     flag = cols.any(torch.tensor(late, device=like.device))
     return bool(host_read("deadline", flag.item))
+
+
+# A single LP's iteration replays as a CUDA graph, cached by operand
+# layout and knobs (_iteration).  REFINE_PASSES: the refinement passes a
+# solve makes in each graph of an iteration, tried in turn while a solve
+# asks for a pass more, then the eager body.  Two graphs, because a pass
+# costs more than the iterations that need it save: on a PILOT87-sized LP
+# on an H100, a pass is 1.6 ms of an f32 replay's 5.7 ms and 2.1 ms of an
+# f64 one's 8.0, and about one iteration in six asks for one (PERF.md).
+# GRAPH_CACHE: how many layouts keep their graphs, the least recently
+# used dropped first.
+REFINE_PASSES = (0, 1)
+GRAPH_CACHE = 4
+_GRAPHS: OrderedDict = OrderedDict()
+
+
+class _Iteration(NamedTuple):
+    """A captured iteration: the static operands (A, b, c and the tail's
+    idx2, w2) and state that the graphs read, make_step's body on them,
+    and a replay() -> (the new state, the flags of body.speculate) for
+    each entry of REFINE_PASSES."""
+    operands: tuple
+    state: HsdState
+    body: object
+    replays: tuple
+
+
+def _graph_engages(A, cols, compensated, trace, on_iter) -> bool:
+    """Whether _hsd_loop replays a graph an iteration: one LP (a 2-D A) on
+    a CUDA device, on the plain path (no column shards, no compensated
+    sums, no trace rows, no per-iteration callback)."""
+    return (A.device.type == "cuda" and A.dim() == 2 and cols is None
+            and not compensated and not trace and on_iter is None)
+
+
+def _iteration(A, b, c, ub, init: HsdState, max_iter: int, pause_mu: float,
+               knobs: dict) -> _Iteration:
+    """The cached graphs of one iteration on operands of this layout with
+    these knobs, their static operands and state loaded with (A, b, c,
+    ub) and init; captured (each counted as hsd.graph.captures) on a
+    miss."""
+    args = (A, b, c) + (() if ub is None else tuple(ub))
+    key = (tuple((t.shape, t.dtype, t.device) for t in args + tuple(init)),
+           max_iter, pause_mu, tuple(sorted(knobs.items())))
+    it = _GRAPHS.pop(key, None)
+    if it is None:
+        operands = tuple(t.clone() for t in args)
+        state = HsdState(*(t.clone() for t in init))
+        sA, sb, sc, *tail = operands
+        body = make_step(sA, sb, sc, ub=UbTail(*tail) if tail else None,
+                         **knobs)
+        pause = torch.full((), pause_mu, dtype=A.dtype, device=A.device)
+        replays = []
+        for passes in REFINE_PASSES:
+            count("hsd.graph.captures")
+            replays.append(capture(body.speculate, state, max_iter, pause,
+                                   passes, device=A.device))
+        it = _Iteration(operands, state, body, tuple(replays))
+    else:
+        copy_into(it.operands, args)
+        copy_into(it.state, init)
+    _GRAPHS[key] = it
+    while len(_GRAPHS) > GRAPH_CACHE:
+        _GRAPHS.popitem(last=False)
+    return it
+
+
+def _replayed(it: _Iteration, factor_dtype):
+    """One iteration of a single LP from it.state by its graphs, as the
+    eager body takes it: the first graph's replay, again from the next
+    Tikhonov level while a factor retry is due (hsd.graph.retries), the
+    next graph while a solve asks for a refinement pass more, and the
+    eager body after the last (hsd.graph.redos).  Every replay that runs
+    a live iteration counts as hsd.graph.replays and reads its flags once
+    (host_read site hsd.graph).  Returns (the new state, or None where the
+    loop's live test fails; the live test on the new state, or True where
+    it is not known)."""
+    state = it.state
+    for replay in it.replays:
+        retry = True
+        while retry:
+            out, flags = replay()
+            live, retry, refine, live_next = host_read("hsd.graph",
+                                                       flags.tolist)
+            if not live:
+                return None, False
+            count("hsd.graph.replays")
+            if retry:
+                # kkt_factor's escalation, a level a replay: the tries
+                # that failed leave nothing behind but the level
+                count("hsd.graph.retries")
+                state.reg.copy_(next_reg(state.reg.to(factor_dtype)))
+        if not refine:
+            return out, live_next
+    count("hsd.graph.redos")
+    return it.body(state, None, it.body.decide(state), True), True
 
 
 def _hsd_loop(A, b, c, f, init: HsdState, *,
@@ -459,42 +611,66 @@ def _hsd_loop(A, b, c, f, init: HsdState, *,
     sees the state before each step.  cols: the column shards of A, c and
     the state's x and z (make_step).
 
-    Each lane stops on its own; the loop runs while any lane runs.
+    Each lane stops on its own; the loop runs while any lane runs.  One
+    LP on a CUDA device (_graph_engages) takes each iteration from cached
+    CUDA graphs of body.speculate, replayed as _replayed says, so every
+    iterate is the eager loop's.
     Returns (state, paused): the state NOT de-homogenized, and whether
     every lane stopped because mu reached pause_mu with its solve still
     running.
     """
-    body = make_step(A, b, c, eps=eps, step_factor=step_factor,
-                     beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
-                     gap_tol=gap_tol, feas_tol=feas_tol,
-                     long_step=long_step, max_refine=max_refine,
-                     trace=trace, f=f, factor_dtype=factor_dtype,
-                     compensated=compensated, corrector=corrector, ub=ub,
-                     cols=cols)
+    knobs = dict(eps=eps, step_factor=step_factor, beta=beta,
+                 epsdiag=epsdiag, refine_tol=refine_tol, gap_tol=gap_tol,
+                 feas_tol=feas_tol, long_step=long_step,
+                 max_refine=max_refine, factor_dtype=factor_dtype,
+                 corrector=corrector)
+    it = None
+    if _graph_engages(A, cols, compensated, trace, on_iter):
+        # f enters only the trace rows, which the graph path never prints
+        it = _iteration(A, b, c, ub, init, max_iter, pause_mu, knobs)
+        body, state = it.body, it.state
+    else:
+        body = make_step(A, b, c, trace=trace, f=f, compensated=compensated,
+                         ub=ub, cols=cols, **knobs)
+        state = init
     m, n = A.shape[-2:]
     if ub is not None:
         m = m + ub.idx2.shape[-1]
     if cols is not None:
         n = cols.n
     pause = torch.full((), pause_mu, dtype=A.dtype, device=A.device)
-    state = init
     while True:
-        # the stop test of this iteration goes into the loop's one read:
-        # whether any lane is live, and whether any live lane steps
-        pre = body.decide(state)
-        live = ((state.status == _RUNNING) & (state.iter < max_iter)
-                & (pre.mu.reshape(state.status.shape) > pause))
-        stepping = live & (pre.new_status == _RUNNING).reshape(live.shape)
-        any_live, any_step = host_read(
-            "hsd.loop", torch.stack([live.any(), stepping.any()]).tolist)
-        if not any_live:
-            break
-        if on_iter is not None:
-            on_iter(state)
-        # a single LP steps only when live: no lanes to keep
-        state = body(state, live if live.dim() else None, pre, any_step)
+        if it is not None:
+            out, live_next = _replayed(it, factor_dtype or A.dtype)
+            if out is None:
+                break
+            copy_into(state, out)
+        else:
+            # the stop test of this iteration goes into the loop's one
+            # read: whether any lane is live, and whether any live lane
+            # steps
+            pre = body.decide(state)
+            live = ((state.status == _RUNNING) & (state.iter < max_iter)
+                    & (pre.mu.reshape(state.status.shape) > pause))
+            stepping = live & (pre.new_status == _RUNNING).reshape(
+                live.shape)
+            any_live, any_step = host_read(
+                "hsd.loop", torch.stack([live.any(), stepping.any()]).tolist)
+            if not any_live:
+                break
+            if on_iter is not None:
+                on_iter(state)
+            # a single LP steps only when live: no lanes to keep
+            state = body(state, live if live.dim() else None, pre, any_step)
         if deadline is not None and past_deadline(deadline, A, cols):
             break
+        if it is not None and not live_next:
+            # the next iteration's live test fails (the graph ran it on
+            # the state it returned): stop as the eager loop would
+            break
+    if it is not None:
+        # the static state is the graph's: hand the caller its own copy
+        state = HsdState(*(t.clone() for t in state))
     mu = _mu(state, n + m + 1, local if cols is None else cols.sum)
     paused = bool(host_read("hsd.pause", (
         (state.status == _RUNNING) & (state.iter < max_iter)

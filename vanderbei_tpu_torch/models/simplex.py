@@ -41,7 +41,8 @@ from ..core.config import SolverConfig
 from ..core.status import Status
 from ..ops.kkt import where_lanes
 from ..utils.checkpoint import to_device
-from ..utils.profiling import host_read, spanned
+from ..utils.graphs import capture, copy_into
+from ..utils.profiling import host_read
 
 EPS1 = 1.0e-8       # pivot eligibility (pd.c:39)
 EPS2 = 1.0e-12      # perturbation positivity floor (pd.c:40)
@@ -149,30 +150,16 @@ def _run(cond, body, refresh, state, refresh_every: int, deadline):
     return state, False
 
 
-def _copy_into(dst, src):
-    """Copy every tensor of the state src into dst's; returns dst."""
-    for d, t in zip(dst, src):
-        d.copy_(t)
-    return dst
-
-
-@spanned("graph_capture")
 def _graph_step(body, state):
     """Capture body (state -> new state, no host reads) as one CUDA graph
-    that reads a static copy of state and writes its result back into it.
-    Returns (the static state, step), step(static) replaying the graph."""
+    that reads a static copy of state and writes its result back into it
+    (utils/graphs.capture, whose warm-up runs body alone).  Returns (the
+    static state, step), step(static) replaying the graph."""
     static = type(state)(*(t.clone() for t in state))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        body(static)                    # warm-up, outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _copy_into(static, body(static))
+    replay = capture(lambda s: copy_into(s, body(s)), static, warm=body)
 
     def step(s):
-        graph.replay()
+        replay()
         return s
 
     return static, step
@@ -327,7 +314,7 @@ def _pd_loop(Afull, b, c, u_x, u_y, *, max_iter: int, refresh_every: int,
     # small kernels launched eagerly would bound the loop on the host
     if dev.type == "cuda" and not trace:
         state, step = _graph_step(body, state)
-        put = _copy_into
+        put = copy_into
     else:
         step, put = body, lambda old, new: new
     # refresh_every guarded pivots, then one refactor of the running

@@ -28,9 +28,12 @@ Hopper kernel on a CUDA tensor, in one launch for the whole batch.  The
 f64 product, the Cholesky factor (cholesky_ex, whose `info` joins the
 NaN/Inf scan), the triangular solves and the matvecs stay torch.matmul /
 torch.linalg.  Each factor retry and each refinement pass reads one flag
-on the host.  The recorder's spans (utils/profiling.py): `normal_matrix`
-around the assembly, `factor` around its scaling and the Cholesky with
-its retries, `kkt_solve` around a refined solve.
+on the host; with retry=False (kkt_factor) or a fixed number of passes
+(kkt_solve) they read nothing and report instead, on the device, what a
+read would have found (models/hsd.py's CUDA-graph iteration).  The
+recorder's spans (utils/profiling.py): `normal_matrix` around the
+assembly, `factor` around its scaling and the Cholesky with its retries,
+`kkt_solve` around a refined solve.
 
 Column shards (cols, a parallel/distributed.ColumnShards): A and every
 n-vector hold only this rank's columns, m-vectors are whole on every rank,
@@ -158,11 +161,12 @@ class KKTFactor(NamedTuple):
     L may be lower precision than the data; solves cast through L.dtype
     and refinement recovers the rest.  g2 is the Schur-eliminated tail
     diagonal (UbTail path), reg the Tikhonov level each lane's factor
-    ended at."""
+    ended at, bad the lanes whose factor failed there."""
     L: torch.Tensor
     s: torch.Tensor
     g2: torch.Tensor = None
     reg: torch.Tensor = None
+    bad: torch.Tensor = None
 
 
 def _cholesky(Mr):
@@ -216,16 +220,26 @@ def normal_matrix(A, Ec, Dc, f32_path: bool, Q=None, dinv=None, cols=None):
     return M
 
 
+def next_reg(reg):
+    """The Tikhonov level a failed factor retries at, in the factor's
+    precision (reg's dtype): the floor after 0, then 100 times the last."""
+    floor = 1.0e-14 if reg.dtype == torch.float64 else 1.0e-7
+    return torch.where(reg == 0.0, torch.full_like(reg, floor), reg * 100.0)
+
+
 def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
                ub: UbTail | None = None, reg0=None, active=None,
-               cols=None) -> KKTFactor:
+               cols=None, retry: bool = True) -> KKTFactor:
     """Cholesky-factor the reduced normal-equations matrix.
 
     E, D are clamped below by epsdiag (ldlt.c:235-236).  reg0 (one level
     per lane) seeds the Tikhonov escalation with the level the previous
     iteration's factor needed (sticky, like the reference's epsdiag).
     active: a per-lane mask; lanes outside it do not retry.  cols: column
-    shards (module docstring); the primal form only."""
+    shards (module docstring); the primal form only.  retry=False factors
+    once at reg0 and reads nothing: where the factor is `bad` and its
+    level below 1e-2, the escalation would have refactored at
+    next_reg(level), and a factor from that level is the one it gives."""
     m, n = A.shape[-2:]
     nsum, nany = (local, local) if cols is None else (cols.sum, cols.any)
     if cols is not None and (Q is not None or not use_primal_form(
@@ -270,7 +284,6 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         # JAX loop's carried scalar: floor, then x100 per retry, stop at
         # >= 1e-2
         lead = Ms.shape[:-2]
-        floor = 1.0e-14 if Ms.dtype == torch.float64 else 1.0e-7
         reg = torch.as_tensor(0.0 if reg0 is None else reg0, dtype=Ms.dtype,
                               device=Ms.device).expand(lead).clone()
         L, bad = _cholesky(Ms + reg[..., None, None] * eye)
@@ -282,21 +295,20 @@ def kkt_factor(A, E, D, epsdiag, Q=None, factor_dtype=None,
         Mf = Ms.reshape(-1, *Ms.shape[-2:])
         retry_ok = reg < 1.0e-2 if active is None else (
             active.expand(lead).reshape(-1) & (reg < 1.0e-2))
-        while True:
-            retry = host_read("kkt.retry", torch.nonzero,
+        while retry:
+            again = host_read("kkt.retry", torch.nonzero,
                               bad & retry_ok).squeeze(-1)
-            if retry.numel() == 0:
+            if again.numel() == 0:
                 break
-            r = reg[retry]
-            r = torch.where(r == 0.0, torch.full_like(r, floor), r * 100.0)
-            Lr, badr = _cholesky(Mf[retry] + r[:, None, None] * eye)
-            reg[retry], L[retry], bad[retry] = r, Lr, nany(badr)
-            retry_ok[retry] = r < 1.0e-2
+            r = next_reg(reg[again])
+            Lr, badr = _cholesky(Mf[again] + r[:, None, None] * eye)
+            reg[again], L[again], bad[again] = r, Lr, nany(badr)
+            retry_ok[again] = r < 1.0e-2
         L, bad, reg = L.reshape(Ms.shape), bad.reshape(lead), reg.reshape(lead)
         # a factor that never succeeded is all NaN, as the JAX factor is:
         # the step's finite-iterate guard then stops that lane
         L = torch.where(lanes(bad, L), float("nan"), L)
-        return KKTFactor(L, s, g2, reg)
+        return KKTFactor(L, s, g2, reg, bad)
 
 
 def _scaled_cho_solve(fac: KKTFactor, t):
@@ -346,7 +358,7 @@ def _raw_solve(A, Ec, Dc, fac: KKTFactor, ry, rx, Q=None, ub=None,
 def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
               epsdiag=1.0e-14, refine_tol=1.0e-10, max_refine: int = 8,
               compensated: bool = False, ub: UbTail | None = None,
-              active=None, cols=None):
+              active=None, cols=None, passes: int | None = None):
     """Solve [[-E, A], [A', D+Q]] [dy; dx] = [rhs_y; rhs_x] with refinement.
 
     Residuals use the TRUE (unclamped) E, D while the factor used the
@@ -358,7 +370,13 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     refinement can go below the plain products' roundoff floor.  cols:
     column shards (module docstring); with compensated, the head product
     of the residual's row block is a partial sum left unrounded
-    (quad.matvec2_dd) and completed by ColumnShards.sum2."""
+    (quad.matvec2_dd) and completed by ColumnShards.sum2.
+
+    passes (a single LP): make at most that many refinement passes (and
+    no more than max_refine), each taken or not on the device as its
+    refinement test says, with no host read; returns (dy, dx, more), more
+    whether the test still asked for a pass after them.  Every value
+    equals that of the refinement with reads whenever more is False."""
     nsum, nmax = (local, local) if cols is None else (cols.sum, cols.max)
     Ec = E.clamp_min(epsdiag)
     Dc = D.clamp_min(epsdiag)
@@ -403,14 +421,30 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     # passes, and one that never refined keeps oldmaxrs = inf
     oldmaxrs = torch.full_like(maxrs, float("inf"))
     ey = ex = None
-    for _ in range(max_refine):
+
+    def asks():
+        """The refinement test: the lanes a pass would still improve."""
         go = (maxrs > refine_tol * maxbc) & (maxrs < 0.5 * oldmaxrs)
-        if active is not None:
-            go = go & active
-        if not bool(host_read("kkt.refine", go.any().item)):
+        return go if active is None else go & active
+
+    for _ in range(max_refine if passes is None
+                   else min(passes, max_refine)):
+        go = asks()
+        if passes is None and not bool(host_read("kkt.refine",
+                                                 go.any().item)):
             break
         cy, cx = _raw_solve(A, Ec, Dc, L, r1, r2, Q, ub=ub, cols=cols)
-        if go.dim():
+        if passes is not None:
+            # a pass the test refuses leaves the solution, its residual
+            # and the revert state as they were
+            ey, ex = ((cy, cx) if ey is None else
+                      (torch.where(go, cy, ey), torch.where(go, cx, ex)))
+            oldmaxrs = torch.where(go, maxrs, oldmaxrs)
+            dy = torch.where(go, dy + cy, dy)
+            dx = torch.where(go, dx + cx, dx)
+            r1, r2 = residual(dy, dx)
+            maxrs = torch.where(go, max_resid(r1, r2), maxrs)
+        elif go.dim():
             # lanes that stopped refining keep their solution and their
             # last correction (for the revert below)
             g = lanes(go, dy)
@@ -435,4 +469,6 @@ def kkt_solve(A, E, D, L: KKTFactor, rhs_y, rhs_x, *, Q=None,
     if single:
         dy = dy.squeeze(-1)
         dx = dx.squeeze(-1)
-    return dy, dx
+    if passes is None:
+        return dy, dx
+    return dy, dx, asks() & (passes < max_refine)

@@ -15,7 +15,9 @@ any of them builds a new library and a stale one is never loaded.
 `route_launches` counts the kernel's launches by copy path and layout
 (keys such as "tma/transposed"), so a run can show that the solver went
 through it, and `launch_shapes` by the shape and layout of X; `launch_count()`
-is their total and `reset_counts` zeroes both.
+is their total, `reset_counts` zeroes both, `counts()` copies them and
+`add_counts` adds to them (a CUDA graph's launches at each replay,
+utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -45,6 +47,22 @@ _lib = None
 def reset_counts() -> None:
     route_launches.clear()
     launch_shapes.clear()
+
+
+def counts() -> tuple:
+    """Both counters as they stand, copied: (route_launches,
+    launch_shapes)."""
+    return dict(route_launches), dict(launch_shapes)
+
+
+def add_counts(launches: tuple, sign: int = 1) -> None:
+    """Add launches, as counts() gives them, to both counters (sign -1:
+    take them away)."""
+    for total, part in zip((route_launches, launch_shapes), launches):
+        for key, n in part.items():
+            total[key] = total.get(key, 0) + sign * n
+            if not total[key]:
+                del total[key]
 
 
 def launch_count() -> int:
