@@ -247,7 +247,7 @@ def test_whole_solve_is_the_eager_solve(monkeypatch, tmp_path, lp_name,
 
 def _operands(lp, structured, dtype):
     canon = ubtail.canonical(lp, structured, scale="geometric")
-    struct = registry._hsd_structured_operands(canon) if structured else None
+    struct = ubtail._hsd_structured_operands(canon) if structured else None
     if struct is None:
         canon = registry._pad(canon, "auto")
     return operands_from_canon(struct or canon, "cpu", dtype), canon.f

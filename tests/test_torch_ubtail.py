@@ -22,11 +22,11 @@ from vanderbei_tpu_torch.core.builder import LPBuilder
 from vanderbei_tpu_torch.core.canonicalize import (CanonLP, canonicalize,
                                                    recover_solution)
 from vanderbei_tpu_torch.core.status import Status
+from vanderbei_tpu_torch.core.ubtail import (_hsd_structure_applies,
+                                             _hsd_structured_operands,
+                                             size_class)
 from vanderbei_tpu_torch.io.mps import read_mps
 from vanderbei_tpu_torch.io.writer import write_lp
-from vanderbei_tpu_torch.models.registry import (_hsd_structure_applies,
-                                                 _hsd_structured_operands,
-                                                 size_class)
 from vanderbei_tpu_torch.utils.randlp import random_bounded_lp
 
 ULPS = 4

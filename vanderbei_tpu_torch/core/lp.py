@@ -112,7 +112,7 @@ class Solution:
     # canonical-space b (negated originals) for writesol's OB check
     b_canon: np.ndarray = None
     # one dict per precision stage the solve ran, in order: precision,
-    # iterations, seconds, paused (see models/registry._run_staged)
+    # iterations, seconds, paused (see models/staged.timed)
     stages: list = None
 
     @property

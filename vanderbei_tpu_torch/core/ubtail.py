@@ -21,16 +21,17 @@ nonzeros alone:
    col_scale[ub_cols].
 
 Every step is elementwise or an order-free segment max/min, so the padded
-operands are bitwise those of canonicalize + registry's
-_hsd_structured_operands (the empty entries' signed zeros included), as
-long as every lower bound is 0; a finite nonzero lower bound shifts b by
-A l, which the dense form computes with a BLAS matvec and this module
-with a sum over the nonzeros, so b may then differ in its last bits.
+operands are bitwise those of canonicalize + _hsd_structured_operands
+(the empty entries' signed zeros included), as long as every lower bound
+is 0; a finite nonzero lower bound shifts b by A l, which the dense form
+computes with a BLAS matvec and this module with a sum over the
+nonzeros, so b may then differ in its last bits.
 
 `canonical` picks the builder from what the LP shows (no Q, a finite
 upper bound, no split free column with one, head rows <= columns: the
-conditions of registry._hsd_structure_applies, read off the bound
-vectors) and falls back to canonicalize for everything else.
+conditions of _hsd_structure_applies, read off the bound vectors) and
+falls back to canonicalize for everything else.  On either form,
+_hsd_structure_applies decides whether an LP takes the tail.
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ def _bounds(lp: LP):
 
 def applies(lp: LP, free_vars: str = "reject") -> bool:
     """Whether canonicalize(lp) would take the UbTail structure
-    (registry._hsd_structure_applies) and not abort."""
+    (_hsd_structure_applies) and not abort."""
     if lp.qnz and lp.Q is not None:
         return False
     _, u_shift, free_cols = _bounds(lp)
@@ -242,3 +243,50 @@ def fill(canon: CanonLP, A1, b, c, idx2, w2) -> None:
     b[M1:M1 + k] = canon.b[m1:m1 + k]
     c[:n] = canon.c[:n]
     idx2[:k] = canon.ub_cols
+
+
+def size_class(dim: int, floor: int = 256) -> int:
+    """Padded size class for dim: powers of two up to 2048, then multiples
+    of 512 (vanderbei_tpu.models.registry.size_class)."""
+    if dim > 2048:
+        return ((dim + 511) // 512) * 512
+    c = floor
+    while c < dim:
+        c *= 2
+    return c
+
+
+def _hsd_structure_applies(canon: CanonLP) -> bool:
+    k = len(canon.ub_cols)
+    if not (k > 0 and canon.Q is None and (canon.m - k) <= canon.n):
+        return False
+    # a split free variable with a finite upper bound mirrors -1 into its
+    # ub row, so that tail row is NOT a singleton: fall back to dense
+    if canon.free_cols is not None and len(canon.free_cols):
+        if np.intersect1d(canon.free_cols, canon.ub_cols).size:
+            return False
+    return True
+
+
+def _hsd_structured_operands(canon: CanonLP, M1: int | None = None,
+                             K: int | None = None, N: int | None = None):
+    """Split the canonical rows into [general head | singleton ub tail],
+    each padded to its own size class, for the Schur-eliminated KKT path
+    (ops/kkt.UbTail), from a dense CanonLP or a UbCanon.
+    Returns None when the structure doesn't apply."""
+    if not _hsd_structure_applies(canon):
+        return None
+    k = len(canon.ub_cols)
+    m1 = canon.m - k
+    n = canon.n
+    M1 = M1 if M1 is not None else size_class(m1)
+    K = K if K is not None else size_class(k)
+    N = N if N is not None else size_class(n)
+    dtype = canon.b.dtype
+    A1 = np.zeros((M1, N), dtype=dtype)
+    b = np.ones(M1 + K, dtype=dtype)
+    c = np.zeros(N, dtype=dtype)
+    idx2 = np.zeros(K, dtype=np.int32)
+    w2 = np.zeros(K, dtype=dtype)
+    fill(canon, A1, b, c, idx2, w2)
+    return dict(A1=A1, b=b, c=c, idx2=idx2, w2=w2, m1=m1, k=k, M1=M1, K=K)

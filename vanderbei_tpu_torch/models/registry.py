@@ -7,14 +7,11 @@ vanderbei_tpu/models/registry.py.  Methods, chosen at run time:
     pd       - parametric self-dual simplex              (src/simpo/pd.c)
     twophase - two-phase simplex                         (src/simpo/2phase.c)
 
-Precision ladder of the IPMs (cfg.precision "auto" -> "mixed" once the
-factored dimension is >= cfg.mixed_min_dim): stage 1 runs the whole solve
-in f32, normal matrices through the hand-written syrk kernel, until mu
-(hsd) or the duality gap (intpt) reaches the stage boundary; stage 2
-resumes the same state in f64 to the reference tolerance.  "dd" is one
-f64 stage whose residuals and inner products are compensated (ops/quad).
-Canonical dims pad to the JAX package's size classes so that both packages
-iterate on the same system.
+The IPMs run the precision ladder of models/staged.py (cfg.precision
+"auto" -> "mixed" once the factored dimension is >= cfg.mixed_min_dim);
+"dd" is one f64 stage whose residuals and inner products are compensated
+(ops/quad).  Canonical dims pad to the JAX package's size classes so that
+both packages iterate on the same system.
 
 A SUBOPTIMAL hsd/hsdls verdict is retried unscaled, then cross-checked
 with intpt; an LP with a QUADS section is routed to intpt.
@@ -41,14 +38,15 @@ from ..core.canonicalize import pad_canon, recover_solution, CanonLP
 from ..core.config import SolverConfig
 from ..core.lp import LP, Solution
 from ..core.status import Status
-from ..ops.kkt import local
+from ..core.ubtail import size_class
 from ..parallel.distributed import (ColumnShards, column_shard,
                                     model_size)
 from ..utils.checkpoint import operands_from_canon, to_device
-from ..utils.profiling import Span, host_read, span, spanned
+from ..utils.profiling import host_read, span, spanned
 from . import hsd as _hsd
 from . import intpt as _intpt
 from . import simplex as _simplex
+from . import staged
 
 
 def resolve_device(device) -> torch.device:
@@ -61,90 +59,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def size_class(dim: int, floor: int = 256) -> int:
-    """Padded size class for dim: powers of two up to 2048, then multiples
-    of 512 (vanderbei_tpu.models.registry.size_class)."""
-    if dim > 2048:
-        return ((dim + 511) // 512) * 512
-    c = floor
-    while c < dim:
-        c *= 2
-    return c
-
-
-def resolve_precision(cfg: SolverConfig, shape) -> str:
-    """"auto" -> "mixed" only where the f32 sprint pays (big factored dim);
-    small problems run f64 direct."""
-    if cfg.precision != "auto":
-        return cfg.precision
-    return "mixed" if min(shape) >= cfg.mixed_min_dim else "f64"
-
-
-def _state_finite(state, nall=local) -> bool:
-    """x finite (on every column shard: nall), and phi too for an HSD
-    state (an intpt state has none)."""
-    ok = nall(torch.isfinite(state.x).all())
-    if hasattr(state, "phi"):
-        ok = ok & torch.isfinite(state.phi)
-    return bool(host_read("staged.finite", ok.item))
-
-
-def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
-                max_iter: int, mk_args32, mk_args64, stage_knob: float, shape,
-                stages: list, cols: ColumnShards | None = None):
-    """Two-stage driver of the IPM solvers: an f32 sprint to stage_knob,
-    then the f64 polish.
-
-    run_stage(args, init, pause, factor_dtype, deadline) -> (state, paused),
-    where paused means the solve reached the stage boundary (mu for hsd,
-    the duality gap for intpt); solver_mod.cast_state moves the paused
-    state to f64.  Appends one record per stage run to `stages`, its
-    seconds those of the stage's span.  Returns the final state.  cols:
-    the column shards of the state's x, if any (each stage's record then
-    counts its all-reduces, their bytes and seconds); `shape` is always
-    the global one.
-    """
-    precision = resolve_precision(cfg, shape)
+def _run_ladder(solver_mod, run_stage, init_for, mk_args, pause: float,
+                cfg: SolverConfig, shape, max_iter: int, stages: list,
+                cols: ColumnShards | None = None):
+    """models/staged.ladder for one LP, its run_stage given cfg's time
+    limit as a `deadline` keyword, then, where a warm-started polish
+    exhausted max_iter before the deadline, one clean f64 retry: the f32
+    sprint can wander on degenerate problems.  `shape` is always the
+    global one.  Returns the final state."""
+    precision = staged.resolve_precision(cfg, shape)
     deadline = (None if not np.isfinite(cfg.time_limit)
                 else time.monotonic() + cfg.time_limit)
-
-    def iters(state):
-        return int(host_read("staged.iter", state.iter.item))
-
-    def status(state):
-        return int(host_read("staged.status", state.status.item))
-
-    def timed(label, args, state, pause, factor_dtype):
-        with Span("stage", precision=label) as sp:
-            it0 = iters(state)
-            count0 = None if cols is None else cols.counts()
-            state, paused = run_stage(args, state, pause, factor_dtype,
-                                      deadline)
-            sp.attrs["iterations"] = iters(state) - it0
-        stages.append(dict(precision=label,
-                           iterations=sp.attrs["iterations"],
-                           seconds=sp.seconds, paused=paused))
-        if cols is not None:
-            stages[-1].update(cols.counts(since=count0))
-        return state
-
-    state = None
-    warm = False
-    if precision == "mixed":
-        args32 = mk_args32()
-        state = timed("f32", args32, init_for(args32), stage_knob, None)
-        if (not _state_finite(state, local if cols is None else cols.all)
-                or status(state) == int(Status.SUBOPTIMAL)):
-            # the f32 sprint diverged (the finite-iterate guard stopped it
-            # SUBOPTIMAL): restart clean in f64 rather than polish it
-            state = None
-        else:
-            state = solver_mod.cast_state(state, torch.float64)
-            warm = True
-
-    args64 = mk_args64()
-    if state is None:
-        state = init_for(args64)
+    run = lambda *args: run_stage(*args, deadline=deadline)
     # the XL f32-factor override applies only to the auto/mixed ladder: an
     # explicit f64 request means a full f64 factor
     factor_dtype = (torch.float32
@@ -154,54 +80,20 @@ def _run_staged(solver_mod, run_stage, init_for, cfg: SolverConfig,
                                  or shape[0] * shape[1]
                                  >= cfg.xl_f32factor_elems)))
                     else None)
-    label = "f64" if factor_dtype is None else "f64-data/f32-factor"
-    state = timed(label, args64, state, 0.0, factor_dtype)
-
-    # a warm-started polish that exhausts the budget gets one clean f64
-    # retry: the f32 sprint can wander on degenerate problems
-    if (warm and status(state) == int(Status.RUNNING)
-            and iters(state) >= max_iter
+    state, args64, ok = staged.ladder(
+        precision, run, init_for, mk_args, pause, solver_mod.cast_state,
+        factor_dtype=factor_dtype, stages=stages, cols=cols)
+    if (ok is not None
+            and host_read("staged.retry", (
+                ok & (state.status == int(Status.RUNNING))
+                & (state.iter >= max_iter)).item)
             and (deadline is None
                  or not _hsd.past_deadline(deadline, state.x, cols))):
-        state = timed(label + " retry", args64, init_for(args64), 0.0,
-                      factor_dtype)
+        state = staged.timed(
+            stages, stages[-1]["precision"] + " retry",
+            lambda s: run(args64, s, 0.0, factor_dtype, False),
+            init_for(args64), cols)
     return state
-
-
-def _hsd_structure_applies(canon: CanonLP) -> bool:
-    k = len(canon.ub_cols)
-    if not (k > 0 and canon.Q is None and (canon.m - k) <= canon.n):
-        return False
-    # a split free variable with a finite upper bound mirrors -1 into its
-    # ub row, so that tail row is NOT a singleton: fall back to dense
-    if canon.free_cols is not None and len(canon.free_cols):
-        if np.intersect1d(canon.free_cols, canon.ub_cols).size:
-            return False
-    return True
-
-
-def _hsd_structured_operands(canon: CanonLP, M1: int | None = None,
-                             K: int | None = None, N: int | None = None):
-    """Split the canonical rows into [general head | singleton ub tail],
-    each padded to its own size class, for the Schur-eliminated KKT path
-    (ops/kkt.UbTail), from a dense CanonLP or a core/ubtail.UbCanon.
-    Returns None when the structure doesn't apply."""
-    if not _hsd_structure_applies(canon):
-        return None
-    k = len(canon.ub_cols)
-    m1 = canon.m - k
-    n = canon.n
-    M1 = M1 if M1 is not None else size_class(m1)
-    K = K if K is not None else size_class(k)
-    N = N if N is not None else size_class(n)
-    dtype = canon.b.dtype
-    A1 = np.zeros((M1, N), dtype=dtype)
-    b = np.ones(M1 + K, dtype=dtype)
-    c = np.zeros(N, dtype=dtype)
-    idx2 = np.zeros(K, dtype=np.int32)
-    w2 = np.zeros(K, dtype=dtype)
-    ubtail.fill(canon, A1, b, c, idx2, w2)
-    return dict(A1=A1, b=b, c=c, idx2=idx2, w2=w2, m1=m1, k=k, M1=M1, K=K)
 
 
 def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
@@ -218,7 +110,7 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
     N = (None if mesh is None
          else -(-size_class(canon.n) // model_size(mesh)) * model_size(mesh))
     with span("pad"):
-        struct = (_hsd_structured_operands(canon, N=N)
+        struct = (ubtail._hsd_structured_operands(canon, N=N)
                   if cfg.use_ub_structure else None)
     cols = None
     source = canon if struct is None else struct
@@ -238,15 +130,13 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
             ub = cols.tail(ub)
         return A, b, c, ub
 
-    def run_stage(args, init, pause, factor_dtype, deadline):
+    def run_stage(args, init, pause, factor_dtype, sprint, deadline):
         A, b, c, ub = args
-        sprint = pause > 0.0
         return _hsd._hsd_loop(
             A, b, c, canon.f, init, max_iter=max_iter, eps=cfg.hsd_eps,
             step_factor=cfg.hsd_step_factor, long_step=long_step,
             beta=cfg.beta, gap_tol=cfg.epssol, feas_tol=cfg.epssol,
-            epsdiag=max(cfg.epsdiag, 1e-8) if sprint else cfg.epsdiag,
-            refine_tol=max(cfg.refine_tol, 1e-4) if sprint else cfg.refine_tol,
+            **staged.tolerances(cfg.epsdiag, cfg.refine_tol, sprint),
             max_refine=cfg.max_refine, trace=trace,
             factor_dtype=factor_dtype, pause_mu=pause,
             compensated=(cfg.precision == "dd" and not sprint),
@@ -257,10 +147,8 @@ def _solve_hsd(canon: CanonLP, cfg: SolverConfig, device, stages: list,
         return _hsd.init_state(
             args[0], extra_rows=0 if ub is None else ub.idx2.shape[0])
 
-    state = _run_staged(
-        _hsd, run_stage, init_for, cfg, max_iter,
-        lambda: operands(torch.float32), lambda: operands(torch.float64),
-        cfg.stage1_mu, shape, stages, cols)
+    state = _run_ladder(_hsd, run_stage, init_for, operands, cfg.stage1_mu,
+                        cfg, shape, max_iter, stages, cols)
     status, x, y, w, z, iters = _hsd.finish_state(state, max_iter)
     if cols is not None:
         x, z = cols.gather(x), cols.gather(z)
@@ -293,16 +181,14 @@ def _solve_intpt(canon: CanonLP, cfg: SolverConfig, device, stages: list):
         with span("upload"):
             return A, b, c, to_device(canon.Q, device, dtype)
 
-    def run_stage(args, init, pause, factor_dtype, deadline):
+    def run_stage(args, init, pause, factor_dtype, sprint, deadline):
         A, b, c, Q = args
-        # the f32 sprint cannot reach f64 refinement targets, and its
-        # late roundoff jitter can fake the divergence certificate
-        sprint = pause > 0.0
+        # the f32 sprint's late roundoff jitter can fake the divergence
+        # certificate
         return _intpt._intpt_loop(
             A, b, c, canon.f, Q, init, max_iter=max_iter, eps=cfg.ipm_eps,
             delta=cfg.delta, step_factor=cfg.step_factor,
-            epsdiag=max(cfg.epsdiag, 1e-8) if sprint else cfg.epsdiag,
-            refine_tol=max(cfg.refine_tol, 1e-4) if sprint else cfg.refine_tol,
+            **staged.tolerances(cfg.epsdiag, cfg.refine_tol, sprint),
             max_refine=cfg.max_refine, trace=trace,
             factor_dtype=factor_dtype, pause_gap=pause,
             div_detect=(not sprint) and cfg.div_detect,
@@ -315,10 +201,9 @@ def _solve_intpt(canon: CanonLP, cfg: SolverConfig, device, stages: list):
     # the stage boundary is on the duality gap: stage1_mu * (n + m) keeps
     # it proportional to the mu the gap corresponds to
     knob = cfg.stage1_mu * sum(canon.A.shape)
-    state = _run_staged(
-        _intpt, run_stage, lambda args: _intpt.init_state(args[0]), cfg,
-        max_iter, lambda: mk(torch.float32), lambda: mk(torch.float64),
-        knob, canon.A.shape, stages)
+    state = _run_ladder(_intpt, run_stage,
+                        lambda args: _intpt.init_state(args[0]), mk, knob,
+                        cfg, canon.A.shape, max_iter, stages)
     status, x, y, w, z, iters = _intpt.finish_state(state, max_iter)
     return _fetch(status, x, y, w, z, iters)
 

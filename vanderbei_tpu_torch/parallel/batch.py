@@ -9,12 +9,8 @@ the loop runs until every lane has stopped.  In the f32 sprint the normal
 matrices of all B lanes are formed by one launch of the scaled-SYRK
 kernel per iteration.
 
-The batched IPMs run the single-LP path's precision ladder: stage 1 solves
-every lane in f32 until its mu (hsd) or duality gap (intpt) crosses the
-stage boundary, the loop running until every lane has paused; the states
-are cast to f64, a lane whose sprint diverged (non-finite, or stopped
-SUBOPTIMAL by the finite-iterate guard) restarts clean, and stage 2
-polishes every lane in f64 to the reference tolerance (hsd.c:24).
+The batched IPMs run the single-LP path's precision ladder, lane by lane
+(models/staged.py).
 
 The stacked classes are numpy arrays; the solvers move them to the device
 with torch.from_numpy(...).to(device).  Every solver takes `device`,
@@ -39,10 +35,11 @@ from ..core.status import Status
 from ..models import hsd as _hsd
 from ..models import intpt as _intpt
 from ..models import simplex as _simplex
-from ..models.registry import _hsd_structure_applies, resolve_device
-from ..ops.kkt import UbTail, where_lanes
+from ..models import staged
+from ..models.registry import resolve_device
+from ..ops.kkt import UbTail
 from ..utils.checkpoint import to_device
-from ..utils.profiling import Span, count, host_read, span, spanned
+from ..utils.profiling import count, span, spanned
 from .distributed import ColumnShards, model_size
 from .mesh import batch_sharding, block
 
@@ -61,7 +58,7 @@ def class_key(canon, granularity: int, use_ub_structure: bool) -> tuple:
     problem (head dims and tail count, rounded up), ("d", M, N) for the
     rest, or the legacy dense-only key (M, N) without use_ub_structure."""
     ru = lambda d: _round_up(d, granularity)
-    if use_ub_structure and _hsd_structure_applies(canon):
+    if use_ub_structure and ubtail._hsd_structure_applies(canon):
         k = len(canon.ub_cols)
         return ("s", ru(canon.m - k), ru(canon.n), ru(k))
     if use_ub_structure:
@@ -122,7 +119,7 @@ def stack_class_structured(entries, M1: int, N: int, K: int,
     idx2 = np.zeros((B, K), dtype=np.int32)
     w2 = np.zeros((B, K), dtype=dtype)
     for j, (_, canon) in enumerate(entries):
-        assert _hsd_structure_applies(canon), \
+        assert ubtail._hsd_structure_applies(canon), \
             "structured class entry lost its structure"
         ubtail.fill(canon, A1[j], b[j], c[j], idx2[j], w2[j])
     return A1, b, c, UbTail(idx2, w2)
@@ -168,33 +165,6 @@ def _upload(arrays, device):
         return [to_device(v, device, torch.float64) for v in arrays]
 
 
-def _ub(ub, device, dtype):
-    if ub is None:
-        return None
-    with span("upload"):
-        return UbTail(to_device(ub.idx2, device, torch.int64),
-                      to_device(ub.w2, device, dtype))
-
-
-def _timed(stages, label, run, state, cols=None):
-    """Run one stage; append its per-lane iterations and the seconds of its
-    span (and under column shards its all-reduces, their bytes and
-    seconds).  The span's iterations are the slowest lane's."""
-    with Span("stage", precision=label) as sp:
-        it0 = state.iter
-        count0 = None if cols is None else cols.counts()
-        out, _ = run(state)
-        if stages is not None:
-            its = host_read("batch.stage", (out.iter - it0).cpu).numpy()
-            sp.attrs["iterations"] = int(its.max())
-    if stages is not None:
-        stages.append(dict(precision=label, iterations=its,
-                           seconds=sp.seconds))
-        if cols is not None:
-            stages[-1].update(cols.counts(since=count0))
-    return out
-
-
 @spanned("solve_batch")
 def solve_batch_hsd(A, b, c, *,
                     ub: UbTail | None = None,
@@ -220,8 +190,8 @@ def solve_batch_hsd(A, b, c, *,
     structured KKT path (stack_class_structured builds these).
     precision: "mixed" (f32 sprint, f64 polish), "f32factor" (f64 data,
     f32 factor) or "f64"; compensated applies to the f64 stage.  stages,
-    if given, receives one record per stage (per-lane iterations, wall
-    seconds).
+    if given, receives one record per stage (models/staged.timed:
+    per-lane iterations).
 
     mesh: the class is this rank's block of it (shard_batch): A and c hold
     its columns of the "model" dim, which the solve splits over the rank's
@@ -235,55 +205,37 @@ def solve_batch_hsd(A, b, c, *,
     `device`."""
     count("lanes", len(A))
     device = resolve_device(device)
-    f64 = torch.float64
     A, b, c = _upload((A, b, c), device)
-    extra = 0 if ub is None else np.shape(ub.idx2)[-1]
     cols = None
     if mesh is not None and model_size(mesh) > 1:
         cols = ColumnShards.split(mesh.get_group("model"),
                                   A.shape[-1] * model_size(mesh))
 
-    def tail(dtype):
-        u = _ub(ub, device, dtype)
-        return u if cols is None or u is None else cols.tail(u)
-    knobs = dict(max_iter=max_iter, eps=eps, step_factor=step_factor,
-                 beta=beta, epsdiag=epsdiag, refine_tol=refine_tol,
-                 long_step=long_step, max_refine=max_refine,
-                 corrector=corrector)
+    def mk_args(dtype):
+        u = ub
+        if ub is not None:
+            with span("upload"):
+                u = UbTail(to_device(ub.idx2, device, torch.int64),
+                           to_device(ub.w2, device, dtype))
+        return (A.to(dtype), b.to(dtype), c.to(dtype),
+                u if cols is None or u is None else cols.tail(u))
 
-    def run(A_, b_, c_, ub_, pause, factor_dtype, knobs_, comp):
-        return lambda st: _hsd._hsd_loop(
-            A_, b_, c_, 0.0, st, pause_mu=pause, factor_dtype=factor_dtype,
-            compensated=comp, ub=ub_, cols=cols, **knobs_)
+    def run_stage(args, st, pause, factor_dtype, sprint):
+        A_, b_, c_, ub_ = args
+        return _hsd._hsd_loop(
+            A_, b_, c_, 0.0, st, max_iter=max_iter, eps=eps,
+            step_factor=step_factor, beta=beta,
+            **staged.tolerances(epsdiag, refine_tol, sprint),
+            long_step=long_step, max_refine=max_refine, corrector=corrector,
+            pause_mu=pause, factor_dtype=factor_dtype,
+            compensated=compensated and not sprint, ub=ub_, cols=cols)
 
-    factor_dtype = None
-    if precision == "mixed":
-        # the f32 sprint can't hit f64 refinement targets; relax them there
-        knobs32 = dict(knobs, epsdiag=max(epsdiag, 1e-8),
-                       refine_tol=max(refine_tol, 1e-4))
-        f32 = torch.float32
-        A32 = A.to(f32)
-        st = _timed(stages, "f32", run(A32, b.to(f32), c.to(f32),
-                                       tail(f32), stage1_mu,
-                                       None, knobs32, False),
-                    _hsd.init_state(A32, extra_rows=extra), cols)
-        st = _hsd.cast_state(st, f64)
-        # lanes that diverged in f32 restart clean in f64 (the finiteness
-        # guard stops such lanes SUBOPTIMAL at the last finite iterate)
-        finite = torch.isfinite(st.x).all(-1)
-        if cols is not None:
-            finite = cols.all(finite)
-        ok = (finite & torch.isfinite(st.phi)
-              & (st.status != int(Status.SUBOPTIMAL)))
-        st = where_lanes(ok, st, _hsd.init_state(A, extra_rows=extra))
-    else:
-        st = _hsd.init_state(A, extra_rows=extra)
-        if precision == "f32factor":
-            factor_dtype = torch.float32
-    label = "f64" if factor_dtype is None else "f64-data/f32-factor"
-    out = _timed(stages, label, run(A, b, c, tail(f64), 0.0,
-                                    factor_dtype, knobs, compensated), st,
-                 cols)
+    extra = 0 if ub is None else np.shape(ub.idx2)[-1]
+    out, _, _ = staged.ladder(
+        precision, run_stage,
+        lambda args: _hsd.init_state(args[0], extra_rows=extra), mk_args,
+        stage1_mu, _hsd.cast_state, stages=stages, cols=cols,
+        factor_dtype=torch.float32 if precision == "f32factor" else None)
     status, x, y, w, z, iters = _hsd.finish_state(out, max_iter)
     if cols is not None:
         x, z = cols.gather(x), cols.gather(z)
@@ -320,28 +272,19 @@ def solve_batch_intpt(A, b, c, *,
     A, b, c = _upload((A, b, c), device)
     B, mp, np_ = A.shape
 
-    def run(A_, b_, c_, pause, eps_d, ref_t, dd):
-        return lambda st: _intpt._intpt_loop(
-            A_, b_, c_, 0.0, None, st, max_iter=max_iter, eps=eps,
-            delta=delta, step_factor=step_factor, epsdiag=eps_d,
-            refine_tol=ref_t, pause_gap=pause, div_detect=dd,
-            gap_floor=gap_floor, max_refine=max_refine)
+    def run_stage(args, st, pause, factor_dtype, sprint):
+        return _intpt._intpt_loop(
+            *args, 0.0, None, st, max_iter=max_iter, eps=eps, delta=delta,
+            step_factor=step_factor,
+            **staged.tolerances(epsdiag, refine_tol, sprint),
+            pause_gap=pause, div_detect=div_detect and not sprint,
+            gap_floor=gap_floor, max_refine=max_refine,
+            factor_dtype=factor_dtype)
 
-    if precision == "mixed":
-        f32 = torch.float32
-        A32 = A.to(f32)
-        st = _timed(stages, "f32",
-                    run(A32, b.to(f32), c.to(f32), stage1_gap * (mp + np_),
-                        max(epsdiag, 1e-8), max(refine_tol, 1e-4), False),
-                    _intpt.init_state(A32))
-        st = _intpt.cast_state(st, torch.float64)
-        ok = (torch.isfinite(st.x).all(-1)
-              & (st.status != int(Status.SUBOPTIMAL)))
-        st = where_lanes(ok, st, _intpt.init_state(A))
-    else:
-        st = _intpt.init_state(A)
-    out = _timed(stages, "f64",
-                 run(A, b, c, 0.0, epsdiag, refine_tol, div_detect), st)
+    out, _, _ = staged.ladder(
+        precision, run_stage, lambda args: _intpt.init_state(args[0]),
+        lambda dtype: (A.to(dtype), b.to(dtype), c.to(dtype)),
+        stage1_gap * (mp + np_), _intpt.cast_state, stages=stages)
     return _intpt.finish_state(out, max_iter)
 
 

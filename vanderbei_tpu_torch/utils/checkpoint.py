@@ -97,7 +97,7 @@ def to_device(a, device, dtype):
 @spanned("upload")
 def operands_from_canon(canon, device, dtype):
     """(A, b, c, ub) on the device for a CanonLP (ub None) or for the dict
-    of registry._hsd_structured_operands (A is the head, ub its tail)."""
+    of ubtail._hsd_structured_operands (A is the head, ub its tail)."""
     to = lambda a: to_device(a, device, dtype)
     if isinstance(canon, dict):
         ub = UbTail(to_device(canon["idx2"], device, torch.int64),

@@ -1,9 +1,6 @@
 """Profiling helpers, the port of vanderbei_tpu/utils/profiling.py, and
 the program's span-and-counter recorder.
 
-- `trace(dir)`: context manager around torch.profiler (CPU and, where
-  there is one, CUDA activity), writing a Chrome trace into dir; the
-  profile object it yields has key_averages() and events();
 - `busy_share(prof, seconds)`: the union of the CUDA events' intervals
   over a wall time, the device-busy share of PERF.md, from a
   `device_trace(cuda)`;
@@ -30,23 +27,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
 import time
 
-import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def device_busy_us(prof) -> float:
